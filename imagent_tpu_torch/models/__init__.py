@@ -1,0 +1,25 @@
+"""Model registry (PyTorch port of ``imagent_tpu/models/__init__.py``).
+
+This slice ports the ViT family; the ResNet and ConvNeXt families are
+refused as not yet ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def create_model(arch: str, num_classes: int = 1000, bf16: bool = False,
+                 image_size: int = 224,
+                 generator: torch.Generator | None = None, **overrides):
+    """Instantiate a model by name (the ``--arch`` flag), its weights
+    drawn from ``generator``. ``overrides`` are forwarded to the ViT
+    (``attn_impl``, ``fused_qkv``, ``register_tokens``)."""
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    if arch.startswith("vit"):
+        from imagent_tpu_torch.models import vit
+        return vit.create_vit(arch, num_classes=num_classes, dtype=dtype,
+                              image_size=image_size, generator=generator,
+                              **overrides)
+    raise ValueError(f"--arch {arch} is not yet ported to imagent_tpu_torch "
+                     "(this slice ports the ViT family)")

@@ -1,0 +1,3 @@
+"""Ops: attention (plain and the flash CUDA kernels) and the loss."""
+
+from imagent_tpu_torch.ops.cross_entropy import softmax_cross_entropy

@@ -1,0 +1,114 @@
+"""The port's entry point and package rules: the config surface against
+the JAX package's, the refusal of flags this slice does not port, the
+CUDA-by-default device rule, the import boundary (no JAX, nothing of
+``imagent_tpu``), and a CPU end-to-end run with checkpoints, TensorBoard
+files and ``--resume``."""
+
+import ast
+import dataclasses
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from imagent_tpu.config import Config as JaxConfig
+from imagent_tpu.config import build_parser as jax_parser
+from imagent_tpu_torch.__main__ import main
+from imagent_tpu_torch.config import PORTED, Config, build_parser
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "imagent_tpu")
+
+
+def _cpu_args(tmp_path, *extra):
+    return ["--backend", "cpu", "--arch", "vit_debug", "--attn", "flash",
+            "--dataset", "synthetic", "--image-size", "16",
+            "--num-classes", "4", "--no-bf16", "--batch-size", "8",
+            "--synthetic-size", "64", "--workers", "0", "--log-every", "0",
+            "--ckpt-dir", str(tmp_path / "ckpt"),
+            "--log-dir", str(tmp_path / "tb"), *extra]
+
+
+def test_config_fields_flags_and_defaults_match_jax():
+    ours = {f.name: getattr(Config(), f.name)
+            for f in dataclasses.fields(Config)}
+    theirs = {f.name: getattr(JaxConfig(), f.name)
+              for f in dataclasses.fields(JaxConfig)}
+    assert set(ours) == set(theirs)
+    differ = {k for k in ours if ours[k] != theirs[k]}
+    assert differ == {"backend"} and ours["backend"] == "gpu"
+    assert PORTED <= set(ours)
+
+    def flags(parser):
+        return {s for a in parser._actions for s in a.option_strings}
+    assert flags(build_parser()) == flags(jax_parser())
+
+
+@pytest.mark.parametrize("extra", [
+    ["--arch", "resnet18"], ["--fsdp"], ["--optimizer", "nadam"],
+    ["--dataset", "imagefolder"], ["--mixup", "0.2"], ["--remat"],
+    ["--backend", "tpu"], ["--no-telemetry"],
+])
+def test_unported_flags_exit_78(tmp_path, capsys, extra):
+    assert main(_cpu_args(tmp_path, *extra)) == 78
+    out = capsys.readouterr().out
+    assert "FATAL (fatal-config)" in out
+
+
+def test_default_backend_needs_cuda(tmp_path, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without CUDA")
+    args = [a for a in _cpu_args(tmp_path) if a not in ("--backend", "cpu")]
+    assert main(args) == 78
+    assert "no CUDA device" in capsys.readouterr().out
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module \
+                and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_nothing_of_jax_or_the_jax_package():
+    files = sorted((REPO / "imagent_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 20
+    bad = [(str(f.relative_to(REPO)), name) for f in files
+           for name in _imports(f)
+           if name.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+    code = ("import sys, imagent_tpu_torch.engine, imagent_tpu_torch.__main__;"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _epochs(out: str) -> dict:
+    return {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+        r"^Epoch (\d+): .*? train loss (\S+)", out, re.M)}
+
+
+def test_cpu_run_trains_checkpoints_and_resumes(tmp_path, capsys):
+    assert main(_cpu_args(tmp_path, "--epochs", "2", "--save-model")) == 0
+    losses = _epochs(capsys.readouterr().out)
+    assert set(losses) == {1, 2} and losses[2] < losses[1]
+    for name in ("best.pt", "best_meta.json", "last.pt", "last_meta.json"):
+        assert (tmp_path / "ckpt" / name).exists(), name
+    assert any(p.name.startswith("events.out.tfevents")
+               for p in (tmp_path / "tb").rglob("*"))
+
+    assert main(_cpu_args(tmp_path, "--epochs", "3", "--save-model",
+                          "--resume")) == 0
+    out = capsys.readouterr().out
+    assert "resumed from epoch 2" in out
+    assert set(_epochs(out)) == {3}
