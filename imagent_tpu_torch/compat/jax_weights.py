@@ -1,5 +1,5 @@
-"""Carry ViT weights between the JAX package's Flax param tree and this
-port's module (torchvision names).
+"""Carry ViT and ConvNeXt weights between the JAX package's Flax param
+trees and this port's modules.
 
 ``params`` is the Flax tree of ``imagent_tpu/models/vit.py`` as nested
 dicts of numpy arrays (``jax.device_get`` of a ``TrainState.params``);
@@ -15,6 +15,15 @@ True)``; ``vit_params_to_jax`` inverts it. The layout mapping is the one
   ``in_proj_weight`` [3D, D] (q, k, v order), biases [H, hd] <-> [3D];
 * the out DenseGeneral [H, hd, D] <-> ``out_proj.weight`` [D, H*hd];
 * LayerNorm scale/bias <-> weight/bias.
+
+ConvNeXt (``convnext_params_from_jax`` / ``convnext_params_to_jax``):
+the port keeps the Flax module names (``stem_conv``,
+``stage{i}_block{j}.dwconv``, ...), so the mapping is per leaf: conv
+kernels HWIO <-> OIHW (the depthwise ``(7, 7, 1, C)`` <-> ``(C, 1, 7,
+7)``), LayerNorm scale/bias <-> weight/bias, the head's Dense kernel
+``[in, out]`` <-> ``nn.Linear`` weight ``[out, in]``; ``pwconv1``/
+``pwconv2`` keep Flax's ``kernel``/``bias`` as they are, and
+``layer_scale`` carries across.
 """
 
 from __future__ import annotations
@@ -117,4 +126,48 @@ def vit_params_to_jax(state_dict: dict, num_heads: int) -> dict:
                       "bias": sd[f"{src}.mlp.3.bias"]},
         }
         i += 1
+    return params
+
+
+def convnext_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """Flax ConvNeXt params -> the port's state_dict (fp32 tensors)."""
+    sd = {}
+
+    def walk(node: dict, prefix: str, module: str) -> None:
+        for name, leaf in node.items():
+            if isinstance(leaf, dict):
+                walk(leaf, f"{prefix}{name}.", name)
+            elif name == "kernel" and module == "head":
+                sd[f"{prefix}weight"] = np.asarray(leaf).T
+            elif name == "kernel" and module.endswith("conv"):
+                sd[f"{prefix}weight"] = np.asarray(leaf).transpose(3, 2, 0, 1)
+            elif name == "scale":
+                sd[f"{prefix}weight"] = leaf
+            else:  # biases, the Dense kernels, layer_scale
+                sd[f"{prefix}{name}"] = leaf
+
+    walk(params, "", "")
+    return {k: _t(v) for k, v in sd.items()}
+
+
+def convnext_params_to_jax(state_dict: dict) -> dict:
+    """The port's ConvNeXt state_dict -> the Flax param tree (numpy
+    fp32)."""
+    params: dict = {}
+    for key, value in state_dict.items():
+        value = value.detach().cpu().float().numpy() if torch.is_tensor(
+            value) else np.asarray(value, np.float32)
+        *path, leaf = key.split(".")
+        node = params
+        for name in path:
+            node = node.setdefault(name, {})
+        module = path[-1]
+        if module == "head" and leaf == "weight":
+            node["kernel"] = value.T
+        elif module.endswith("conv") and leaf == "weight":
+            node["kernel"] = value.transpose(2, 3, 1, 0)
+        elif module.endswith("norm") and leaf == "weight":
+            node["scale"] = value
+        else:  # biases, the Dense kernels, layer_scale
+            node[leaf] = value
     return params

@@ -353,14 +353,13 @@ class Config:
     # Single-chip attention kernel (ViT only): full (plain einsum) | flash
     # (ops/flash_attention.py: CUDA kernels on the card).
     attn: str = "full"
-    # ConvNeXt block lowering (ops/fused_mlp.py): Pallas-fused
+    # ConvNeXt block lowering (ops/fused_mlp.py): the CUDA-fused
     # LN -> C->4C -> GELU -> 4C->C -> layer-scale -> residual with the
-    # 4C intermediate VMEM-resident (never written to HBM) and a
-    # custom VJP that recomputes it in the backward. "auto" fuses only
-    # where the backward working set fits VMEM and the backend is TPU;
-    # "on" forces the kernel (interpret off-TPU; VMEM overflow still
-    # falls back); "off" (default, opt-in pending the hardware verdict
-    # in docs/ROOFLINE.md) is bit-for-bit today's path.
+    # 4C intermediate kept on chip (never written to device memory) and
+    # an autograd.Function that recomputes it in the backward. "auto"
+    # fuses where the kernels' shared memory fits the device and the
+    # tensors are on CUDA; "on" fuses wherever the kernels fit (their
+    # plain versions on the CPU); "off" (default) is the unfused path.
     fused_mlp: str = "off"
     # ViT perf/regularization levers (models/vit.py): one-GEMM QKV
     # projection (same param tree) and DINOv2-style register tokens
@@ -696,10 +695,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "CUDA flash kernels)")
     p.add_argument("--fused-mlp", type=str, default=c.fused_mlp,
                    choices=["auto", "on", "off"],
-                   help="ConvNeXt: Pallas-fused LN->MLP->residual block "
-                        "lowering, 4C intermediate kept in VMEM (auto = "
-                        "fuse where the tile fits VMEM on TPU; off = "
-                        "today's path)")
+                   help="ConvNeXt: CUDA-fused LN->MLP->residual block, "
+                        "4C intermediate kept on chip (auto = fuse where "
+                        "the kernels' shared memory fits, on CUDA; off = "
+                        "the unfused path)")
     p.add_argument("--fused-qkv", action="store_true",
                    default=c.fused_qkv,
                    help="ViT: one fused QKV GEMM (same param tree)")
@@ -732,10 +731,12 @@ PORTED = frozenset({
     "ckpt_dir", "resume", "dataset", "synthetic_size", "bf16",
     "prefetch_depth", "warmup_epochs", "label_smoothing", "grad_accum",
     "schedule", "eval_every", "log_every", "health_stats", "max_bad_steps",
-    "attn", "fused_qkv", "register_tokens",
+    "attn", "fused_qkv", "register_tokens", "fused_mlp",
 })
 # Values of the ported fields that this slice supports.
-PORTED_ARCHS = ("vit_b16", "vit_l16", "vit_h14", "vit_debug")
+PORTED_ARCHS = ("vit_b16", "vit_l16", "vit_h14", "vit_debug",
+                "convnext_tiny", "convnext_small", "convnext_base",
+                "convnext_large")
 PORTED_OPTIMIZERS = ("sgd", "adamw")
 PORTED_DATASETS = ("synthetic",)
 BACKENDS = ("gpu", "cpu")

@@ -2,11 +2,11 @@
 summary (the main-path half of ``imagent_tpu/engine.py``, ported to
 PyTorch).
 
-One process on one device: the ViT family through the synthetic
-loader, train and eval steps from ``train.py``, best/last checkpoints,
-TensorBoard scalars on the master. Host-sync discipline follows the JAX
-engine: steps are dispatched asynchronously and the per-step metric
-vectors are read ``_GUARD_LAG`` steps behind the dispatch
+One process on one device: the ViT and ConvNeXt families through the
+synthetic loader, train and eval steps from ``train.py``, best/last
+checkpoints, TensorBoard scalars on the master. Host-sync discipline
+follows the JAX engine: steps are dispatched asynchronously and the
+per-step metric vectors are read ``_GUARD_LAG`` steps behind the dispatch
 (``_LaggedMetrics``), so the host reads only vectors whose step has
 almost always retired. The non-finite guard's verdicts ride the same
 vectors (``n == 0`` marks a skipped step); ``--max-bad-steps``
@@ -215,13 +215,41 @@ def run(cfg: Config) -> dict:
         val_loader.close()
 
 
+def _fused_mlp_plan_line(cfg: Config, device) -> str | None:
+    """The start-up line naming, per ConvNeXt stage width, whether the
+    blocks run the fused kernels and, if not, why: ``smem`` (the
+    kernels' shared memory does not fit the device) or ``device``
+    (``auto`` off CUDA)."""
+    from imagent_tpu_torch.models.convnext import CONVNEXT_DEFS
+    from imagent_tpu_torch.ops.fused_mlp import unfused_reason
+    if cfg.fused_mlp == "off" or cfg.arch not in CONVNEXT_DEFS:
+        return None
+    depths, dims = CONVNEXT_DEFS[cfg.arch]
+    parts, fused = [], 0
+    for depth, dim in zip(depths, dims):
+        why = unfused_reason(cfg.fused_mlp, dim, device=device)
+        parts.append(f"C={dim} " + (f"unfused ({why})" if why else "fused"))
+        fused += 0 if why else depth
+    return (f"fused-mlp {cfg.fused_mlp}: " + ", ".join(parts)
+            + f" ({fused}/{sum(depths)} blocks fused)")
+
+
+def _model_overrides(cfg: Config) -> dict:
+    if cfg.arch.startswith("convnext"):
+        return {"fused_mlp": cfg.fused_mlp}
+    return {"attn_impl": cfg.attn, "fused_qkv": cfg.fused_qkv,
+            "register_tokens": cfg.register_tokens}
+
+
 def _run(cfg, device, is_master, global_batch, train_loader,
          val_loader) -> dict:
+    plan = _fused_mlp_plan_line(cfg, device)
+    if plan and is_master:
+        print(plan, flush=True)
     model = create_model(
         cfg.arch, cfg.num_classes, cfg.bf16, image_size=cfg.image_size,
         generator=torch.Generator().manual_seed(cfg.seed),
-        attn_impl=cfg.attn, fused_qkv=cfg.fused_qkv,
-        register_tokens=cfg.register_tokens).to(device)
+        **_model_overrides(cfg)).to(device)
     optimizer = make_optimizer(cfg.momentum, cfg.weight_decay,
                                cfg.optimizer)
     state = create_train_state(model, optimizer)

@@ -1,7 +1,7 @@
 """Model registry (PyTorch port of ``imagent_tpu/models/__init__.py``).
 
-This slice ports the ViT family; the ResNet and ConvNeXt families are
-refused as not yet ported.
+The ViT and ConvNeXt families are ported; the ResNet family is refused
+as not yet ported.
 """
 
 from __future__ import annotations
@@ -14,12 +14,23 @@ def create_model(arch: str, num_classes: int = 1000, bf16: bool = False,
                  generator: torch.Generator | None = None, **overrides):
     """Instantiate a model by name (the ``--arch`` flag), its weights
     drawn from ``generator``. ``overrides`` are forwarded to the ViT
-    (``attn_impl``, ``fused_qkv``, ``register_tokens``)."""
+    (``attn_impl``, ``fused_qkv``, ``register_tokens``) or the ConvNeXt
+    (``fused_mlp``, ``drop_path_rate``)."""
     dtype = torch.bfloat16 if bf16 else torch.float32
     if arch.startswith("vit"):
         from imagent_tpu_torch.models import vit
         return vit.create_vit(arch, num_classes=num_classes, dtype=dtype,
                               image_size=image_size, generator=generator,
                               **overrides)
+    if arch.startswith("convnext"):
+        from imagent_tpu_torch.models.convnext import create_convnext
+        fused_mlp = overrides.pop("fused_mlp", "off")
+        drop_path = overrides.pop("drop_path_rate", 0.0)
+        if overrides:
+            raise ValueError(f"overrides {sorted(overrides)} do not apply "
+                             "to the ConvNeXt family")
+        return create_convnext(arch, num_classes=num_classes, dtype=dtype,
+                               generator=generator, fused_mlp=fused_mlp,
+                               drop_path_rate=drop_path)
     raise ValueError(f"--arch {arch} is not yet ported to imagent_tpu_torch "
-                     "(this slice ports the ViT family)")
+                     "(this slice ports the ViT and ConvNeXt families)")

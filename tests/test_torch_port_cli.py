@@ -11,6 +11,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -53,6 +54,7 @@ def test_config_fields_flags_and_defaults_match_jax():
     ["--arch", "resnet18"], ["--fsdp"], ["--optimizer", "nadam"],
     ["--dataset", "imagefolder"], ["--mixup", "0.2"], ["--remat"],
     ["--backend", "tpu"], ["--no-telemetry"],
+    ["--arch", "convnext_tiny", "--remat"],
 ])
 def test_unported_flags_exit_78(tmp_path, capsys, extra):
     assert main(_cpu_args(tmp_path, *extra)) == 78
@@ -85,7 +87,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
            for name in _imports(f)
            if name.split(".")[0] in FORBIDDEN]
     assert not bad, bad
-    code = ("import sys, imagent_tpu_torch.engine, imagent_tpu_torch.__main__;"
+    code = ("import sys, imagent_tpu_torch.engine, imagent_tpu_torch.__main__,"
+            " imagent_tpu_torch.models.convnext,"
+            " imagent_tpu_torch.ops.fused_mlp;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -112,3 +116,20 @@ def test_cpu_run_trains_checkpoints_and_resumes(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "resumed from epoch 2" in out
     assert set(_epochs(out)) == {3}
+
+
+def test_convnext_fused_cpu_run_starts(tmp_path, capsys):
+    """ConvNeXt-T at full width and depth with --fused-mlp on: the plan
+    line fuses all 18 blocks (their plain versions on the CPU) and an
+    epoch trains to a finite loss."""
+    args = [a if a != "vit_debug" else "convnext_tiny"
+            for a in _cpu_args(tmp_path)]
+    args[args.index("--image-size") + 1] = "32"
+    args[args.index("--batch-size") + 1] = "2"
+    args[args.index("--synthetic-size") + 1] = "4"
+    assert main(args + ["--fused-mlp", "on", "--epochs", "1"]) == 0
+    out = capsys.readouterr().out
+    assert ("fused-mlp on: C=96 fused, C=192 fused, C=384 fused, "
+            "C=768 fused (18/18 blocks fused)") in out
+    losses = _epochs(out)
+    assert set(losses) == {1} and np.isfinite(losses[1])
