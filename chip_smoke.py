@@ -19,23 +19,47 @@ Phases, in order (any failure raises and exits non-zero):
    its B=64, 224 px row count and at a ragged row count, in fp32 and
    bf16; two backward runs must be bitwise identical; timings at the
    B=64 shapes in bf16;
-5. a ViT-B/16 forward with ``attn=flash`` against ``attn=full``;
-6. main path 1: ``python -m imagent_tpu_torch`` in-process on ViT-B/16
+5. the fused-block kernel: its shared-memory formula against the plan
+   rule's; the kernel against ``reference_bottleneck`` at the four
+   ResNet-50 identity-block geometries at B=64 (56x56 C=256 F=64, 28x28
+   C=512 F=128, 14x14 C=1024 F=256, 7x7 C=2048 F=512) and a ragged shape,
+   fp32 and bf16, biases from N(0, 1); timings at the four B=64 shapes in
+   bf16 beside the plain version and the unfused cuDNN/cuBLAS schedule
+   (``--kernels-only`` stops here);
+6. a ViT-B/16 forward with ``attn=flash`` against ``attn=full``;
+7. main path 1: ``python -m imagent_tpu_torch`` in-process on ViT-B/16
    at 224 px with ``--attn flash --optimizer adamw`` (bf16, global
    batch 64, synthetic data sized for 4 train steps and one eval batch
    per epoch, 2 epochs, best checkpoint saved). The flash launch
    counters are zeroed just before and read just after: every kernel
    must have run at least 12 times per step taken;
-7. main path 2: the same CLI on ConvNeXt-T at 224 px with
+8. main path 2: the same CLI on ConvNeXt-T at 224 px with
    ``--fused-mlp on --optimizer adamw`` (bf16, batch 64, 3 train steps
    and one eval batch per epoch, 2 epochs, best checkpoint saved). The
    plan line must fuse all 18 blocks, and the fused counters, zeroed
    just before, must read exactly 18 forward launches per train and
    eval step and 18 backward and reduce launches per train step;
-8. a profile of each main path's train step (``torch.profiler``): host
-   step time, device time per kernel group, the device's idle share;
-9. the ``kernels`` JSON line, the card line, then the device JSON line
-   last.
+9. main path 3, the system's default command: the CLI with no
+   ``--arch``, so ResNet-18 at 448 px with SGD (lr 0.1, momentum 0.9, wd
+   1e-4), bf16, global batch 128 (the repo's primary cell), 3 train steps
+   and one eval batch per epoch, 2 epochs, best checkpoint saved;
+10. main path 4: ResNet-50 at 224 px, SGD, bf16, global batch 64, 3
+    train steps and one eval batch per epoch, 2 epochs, best checkpoint
+    saved. Every counter is zeroed before each ResNet path and must read
+    0 after it: no model path calls the fused block, as in the JAX
+    package;
+11. the model check: the 12 stride-1 identity bottlenecks of that trained
+    ResNet-50, eval mode, fp32, each block's input captured on one
+    synthetic batch, its BN folded (``fold_bn``) from the trained running
+    statistics and run through ``fused_bottleneck`` with the counter
+    zeroed just before and reading exactly 12 after; each held to the
+    block's own fp32 output (``_MODEL_TOL``) and to its float64 output;
+    then the same inputs and folded weights in bf16 against
+    ``reference_bottleneck`` at 3e-2;
+12. a profile of each main path's train step (``torch.profiler``): host
+    step time, device time per kernel group, the device's idle share;
+13. the ``kernels`` JSON line, the card line, then the device JSON line
+    last.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -44,6 +68,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import io
 import json
 import math
@@ -96,6 +121,30 @@ _FUSED_KERNELS = (
     ("fused_mlp.reduce", "reduce", "imagent_tpu/ops/fused_mlp.py:163"),
 )
 _FUSED_SOURCE = "imagent_tpu_torch/csrc/fused_mlp.cu"
+_BLOCK_KERNEL = ("fused_block", "imagent_tpu/ops/fused_block.py:45")
+_BLOCK_SOURCE = "imagent_tpu_torch/csrc/fused_block.cu"
+# The fused block against its plain version: fp32 differs by summation
+# order only; bf16 is the JAX package's own bound for this kernel
+# (tests/test_fused_block.py:38): y1 and y2 are rounded to bf16 inside
+# the chain, and where two fp32 sums straddle a rounding boundary an
+# operand of the next product moves by a bf16 ulp.
+_BLOCK_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 3e-2)}
+# The model check: the JAX package's bound for the kernel against a real
+# eval-mode Bottleneck with folded BN (tests/test_fused_block.py:96), set
+# there on O(1) activations. The trained smoke model in eval mode carries
+# a residual stream of up to ~1,300 (running statistics from 6 steps),
+# where one fp32 rounding of x + y3 is already ~1e-4 and the fp32 module
+# itself sits up to 1.8e-3 from its own float64 result; so atol scales
+# with the block's input, atol = 2e-4 * max(1, max |x|) (2e-4 at O(1)),
+# and each block's kernel must also be within twice the fp32 module's own
+# error of the float64 block output (+1e-5).
+_MODEL_TOL = (2e-4, 2e-4)
+# ResNet-50's identity (stride-1) bottlenecks, (H = W, C, F) per stage at
+# 224 px, and how many of them each stage has (stage sizes 3/4/6/3).
+_R50_BLOCKS = ((56, 256, 64), (28, 512, 128), (14, 1024, 256),
+               (7, 2048, 512))
+_R50_STAGES = (3, 4, 6, 3)
+_RAGGED_BLOCK = (3, 9, 11, 96, 40)  # B, H, W, C, F
 _VIT_SHAPE = dict(N=197, H=12, D=64)  # ViT-B/16 at 224 px: 196 patches + cls
 _BATCH = 64  # global batch of the kernel and train phases
 # ConvNeXt-T (depths, widths); stage i runs at 56 / 2^i px at 224 px.
@@ -398,6 +447,225 @@ def _fused_step_totals(per_width) -> dict:
     return out
 
 
+def _block_inputs(b, h, w, c, f, dtype, seed):
+    """``[x, w1, b1, w3, b3, wc, bc]`` of one fused block: x from N(0, 1),
+    the weights scaled by fan-in (x's dtype), the biases from N(0, 1) in
+    fp32, so relu(b1) at a pixel outside the image would show."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def mk(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+    x, w1, w3, wc = (mk(b, h, w, c), mk(c, f, scale=c ** -0.5),
+                     mk(3, 3, f, f, scale=(9 * f) ** -0.5),
+                     mk(f, c, scale=f ** -0.5))
+    b1, b3, bc = mk(f), mk(f), mk(c)
+    return [x.to(dtype), w1.to(dtype), b1, w3.to(dtype), b3, wc.to(dtype),
+            bc]
+
+
+def _block_err(name, got, want, tol) -> float:
+    """max |got - want|, held elementwise to ``tol`` = (atol, rtol)."""
+    import torch
+    atol, rtol = tol
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = (got - want).abs()
+    bad = err > atol + rtol * want.abs()
+    if bad.any():
+        raise AssertionError(
+            f"{name}: {int(bad.sum())} elements outside atol={atol} "
+            f"rtol={rtol}; max |err| {float(err.max()):.3e}")
+    return float(err.max())
+
+
+def _block_compare(fb, shape, dtype, seed) -> float:
+    """The kernel against ``reference_bottleneck`` on the same inputs."""
+    import torch
+    b, h, w, c, f = shape
+    dname = str(dtype).replace("torch.", "")
+    args = _block_inputs(b, h, w, c, f, dtype, seed)
+    got = fb.fused_bottleneck(*args)
+    torch.cuda.synchronize()
+    tag = f"B={b} {h}x{w} C={c} F={f} {dname}"
+    err = _block_err(f"fused_block {tag}", got,
+                     fb.reference_bottleneck(*args), _BLOCK_TOL[dname])
+    atol, rtol = _BLOCK_TOL[dname]
+    print(json.dumps({"phase": "block_compare", "shape": tag,
+                      "tile": fb.plan(h, w, f, got.device),
+                      "max_abs_err": err,
+                      "tolerance": f"|err| <= {atol} + {rtol} * |plain|"}),
+          flush=True)
+    return err
+
+
+def _unfused_schedule(x, w1, b1, w3_oihw, b3, wc, bc):
+    """The unfused cuDNN/cuBLAS schedule in x's dtype, channels-last:
+    1x1 as addmm, 3x3 conv2d, 1x1 addmm + residual (the yardstick the JAX
+    package's own benchmark used, ``benchmarks/fused_block.py``)."""
+    import torch
+    import torch.nn.functional as F
+    b, h, w, c = x.shape
+    f = w1.shape[1]
+    dt = x.dtype
+    y = torch.relu(torch.addmm(b1.to(dt), x.reshape(-1, c), w1))
+    y = F.conv2d(y.view(b, h, w, f).permute(0, 3, 1, 2), w3_oihw,
+                 b3.to(dt), padding=1)
+    y = torch.relu(y).permute(0, 2, 3, 1).reshape(-1, f)
+    y = torch.addmm(bc.to(dt), y, wc) + x.reshape(-1, c)
+    return torch.relu(y).view(b, h, w, c)
+
+
+def _block_timings(fb, peaks, card) -> dict:
+    """The kernel, its plain version and the unfused cuDNN/cuBLAS
+    schedule at each ResNet-50 identity geometry at B=64 in bf16, and the
+    bound: max(bytes / HBM rate, flops / bf16 peak), bytes = x read, out
+    written, the weights and biases read once; flops = 2 B H W (2 C F +
+    9 F^2)."""
+    import torch
+    out = {}
+    for hw, c, f in _R50_BLOCKS:
+        args = _block_inputs(_BATCH, hw, hw, c, f, torch.bfloat16, 11 + c)
+        x, w1, b1, w3, b3, wc, bc = args
+        w3_oihw = w3.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        pixels = _BATCH * hw * hw
+        nbytes = (2 * pixels * c + c * f + 9 * f * f + f * c) * 2 \
+            + (2 * f + c) * 4
+        t = _bound(nbytes, 2 * pixels * (2 * c * f + 9 * f * f),
+                   peaks["bf16"], peaks)
+        t["ms"] = _cuda_ms(lambda: fb.fused_bottleneck(*args))
+        t["plain_ms"] = _cuda_ms(lambda: fb.reference_bottleneck(*args), 3, 1)
+        t["library_ms"] = _cuda_ms(lambda: _unfused_schedule(
+            x, w1, b1, w3_oihw, b3, wc, bc))
+        t["bound_by"] = ("bytes" if t["t_bytes_ms"] >= t["t_ops_ms"]
+                         else "operations")
+        t["tile"] = fb.plan(hw, hw, f, x.device)
+        out[(hw, c, f)] = t
+        print(json.dumps({"phase": "block_kernel", "name": "fused_block",
+                          "card": card,
+                          "shape": f"B={_BATCH} {hw}x{hw} C={c} F={f} bf16",
+                          "library": "unfused cuDNN/cuBLAS bf16 schedule "
+                                     "(addmm, conv2d, addmm)", **t}),
+              flush=True)
+    return out
+
+
+def _identity_blocks(model):
+    """The stride-1 identity bottlenecks of a ResNet-50: j > 0 of every
+    stage."""
+    return [getattr(model, f"layer{i + 1}_block{j}")
+            for i, n in enumerate(_R50_STAGES) for j in range(1, n)]
+
+
+def _folded(block):
+    """``(w1, b1, w3, b3, wc, bc)`` of an eval-mode Bottleneck with each
+    BN folded into its conv (``fold_bn``) from its running statistics:
+    w1 (C, F), w3 (3, 3, F, F) HWIO, wc (F, C)."""
+    from imagent_tpu_torch.ops.fused_block import fold_bn
+
+    def fold(conv, bn, kernel):
+        return fold_bn(kernel, bn.weight, bn.bias, bn.running_mean,
+                       bn.running_var)
+    w1, b1 = fold(block.Conv_0, block.BatchNorm_0,
+                  block.Conv_0.weight[:, :, 0, 0].t())
+    w3, b3 = fold(block.Conv_1, block.BatchNorm_1,
+                  block.Conv_1.weight.permute(2, 3, 1, 0))
+    wc, bc = fold(block.Conv_2, block.BatchNorm_2,
+                  block.Conv_2.weight[:, :, 0, 0].t())
+    return [t.detach().contiguous() for t in (w1, b1, w3, b3, wc, bc)]
+
+
+def _block_model_check(fb, best_state, batch: int) -> dict:
+    """The fused kernel against the 12 identity bottlenecks of the
+    trained ResNet-50 (``best_state``), eval mode, fp32: each block's
+    input and output captured by forward hooks on one synthetic batch,
+    its BN folded from the trained running statistics; exactly 12
+    launches; held to the block's fp32 output (``_MODEL_TOL``) and to its
+    float64 output. Then bf16: the same inputs and folded weights cast to
+    bf16, the kernel against ``reference_bottleneck`` (and, for the
+    record only, against the fp32 module output)."""
+    import torch
+    from imagent_tpu_torch.models import create_model
+    from imagent_tpu_torch.train import make_input_prep
+    model = create_model("resnet50", 1000, bf16=False).cuda().eval()
+    model.load_state_dict(best_state, strict=True)
+    blocks = _identity_blocks(model)
+    seen = {}
+    hooks = [blk.register_forward_hook(
+        lambda m, inp, out, k=k: seen.__setitem__(k, (inp[0], out)))
+        for k, blk in enumerate(blocks)]
+    g = torch.Generator().manual_seed(9)
+    images = torch.randint(0, 256, (batch, 224, 224, 3), generator=g,
+                           dtype=torch.uint8).cuda()
+    with torch.no_grad():
+        model(make_input_prep((0.5,) * 3, (0.5,) * 3)(images))
+    for h in hooks:
+        h.remove()
+    if len(seen) != 12:
+        raise AssertionError(f"captured {len(seen)} identity blocks, not 12")
+    weights = [_folded(blk) for blk in blocks]
+    scales = [max(1.0, float(seen[k][0].abs().max())) for k in range(12)]
+    fb.reset_launches()
+    errs, got32 = [], []
+    for k in range(12):
+        x, want = seen[k]
+        got = fb.fused_bottleneck(x, *weights[k])
+        errs.append(_block_err(f"ResNet-50 identity block {k} fp32", got,
+                               want, (_MODEL_TOL[0] * scales[k],
+                                      _MODEL_TOL[1])))
+        got32.append(got)
+    torch.cuda.synchronize()
+    vs_exact, module_vs_exact = [], []
+    for k, blk in enumerate(blocks):  # the float64 block: the exact answer
+        x, want = seen[k]
+        with torch.no_grad():
+            exact = copy.deepcopy(blk).double()(x.double())
+        vs_exact.append(float((got32[k].double() - exact).abs().max()))
+        module_vs_exact.append(float((want.double() - exact).abs().max()))
+        if vs_exact[k] > 2 * module_vs_exact[k] + 1e-5:
+            raise AssertionError(
+                f"ResNet-50 identity block {k}: kernel {vs_exact[k]:.3e} "
+                f"from the float64 block, more than twice the fp32 "
+                f"module's {module_vs_exact[k]:.3e} (+1e-5)")
+    del got32
+    launches = fb.LAUNCHES["fused_block"]
+    if launches != 12:
+        raise AssertionError(f"fused_block launched {launches} times for "
+                             "12 blocks")
+    fb.reset_launches()
+    bf_errs, vs_module = [], []
+    for k in range(12):
+        x, want = seen[k]
+        args = [x.bfloat16()] + [t.bfloat16() if i % 2 == 0 else t
+                                 for i, t in enumerate(weights[k])]
+        got = fb.fused_bottleneck(*args)
+        atol, rtol = _BLOCK_TOL["bfloat16"]
+        bf_errs.append(_block_err(f"ResNet-50 identity block {k} bf16", got,
+                                  fb.reference_bottleneck(*args),
+                                  (atol * scales[k], rtol)))
+        vs_module.append(float((got.float() - want).abs().max()))
+    torch.cuda.synchronize()
+    res = {"phase": "block_model_check", "blocks": 12,
+           "launches_fp32": launches,
+           "launches_bf16": fb.LAUNCHES["fused_block"],
+           "max_abs_input": scales,
+           "max_abs_err_fp32": errs, "tolerance_fp32":
+               f"|err| <= {_MODEL_TOL[0]} * max(1, max|x|) + "
+               f"{_MODEL_TOL[1]} * |module|",
+           "fp32_vs_float64_block": vs_exact,
+           "fp32_module_vs_float64_block": module_vs_exact,
+           "tolerance_vs_float64": "kernel <= 2 * module + 1e-5",
+           "max_abs_err_bf16": bf_errs, "tolerance_bf16":
+               "|err| <= 0.03 * max(1, max|x|) + 0.03 * |plain bf16|",
+           "bf16_vs_fp32_module_max_abs_err": vs_module,
+           "max_abs_module_output": [float(seen[k][1].abs().max())
+                                     for k in range(12)]}
+    print(json.dumps(res), flush=True)
+    return res
+
+
 def _vit_check(fa) -> None:
     """ViT-B/16 fp32 logits with attn=flash (the kernels) against
     attn=full (plain attention) on the same random weights."""
@@ -438,20 +706,26 @@ class _Tee(io.TextIOBase):
         self.out.flush()
 
 
-def _train(arch_argv, counters, batch: int, epochs: int,
-           steps: int) -> dict:
-    """A main path through the CLI entry point, its launch counters
-    (``counters``: modules with ``LAUNCHES``/``reset_launches``) zeroed
-    just before and read just after; returns its numbers."""
+_ADAMW_224 = ["--optimizer", "adamw", "--lr", "1e-4", "--weight-decay",
+              "0.05", "--image-size", "224"]
+
+
+def _train(arch, argv, counters, batch: int, epochs: int, steps: int,
+           workers: int = 4, keep_best: bool = False) -> dict:
+    """A main path through the CLI entry point with ``argv`` (the arch,
+    optimizer and image-size flags; synthetic data for ``steps`` train
+    steps per epoch is added here), its launch counters (``counters``:
+    modules with ``LAUNCHES``/``reset_launches``) zeroed just before and
+    read just after; returns its numbers, and with ``keep_best`` the best
+    checkpoint's model state_dict (on the card) under ``best_state``."""
     import torch
     from imagent_tpu_torch.__main__ import main
+    best_state = None
     with tempfile.TemporaryDirectory() as tmp:
-        argv = [*arch_argv, "--optimizer", "adamw", "--lr", "1e-4",
-                "--weight-decay", "0.05", "--image-size", "224",
-                "--num-classes", "1000", "--dataset", "synthetic",
+        argv = [*argv, "--num-classes", "1000", "--dataset", "synthetic",
                 "--batch-size", str(batch),
                 "--synthetic-size", str(batch * steps),
-                "--epochs", str(epochs), "--workers", "4",
+                "--epochs", str(epochs), "--workers", str(workers),
                 "--log-every", "1", "--seed", "0", "--save-model",
                 "--ckpt-dir", os.path.join(tmp, "ckpt"),
                 "--log-dir", os.path.join(tmp, "tb")]
@@ -467,6 +741,10 @@ def _train(arch_argv, counters, batch: int, epochs: int,
         launches = {k: v for mod in counters for k, v in mod.LAUNCHES.items()}
         peak = torch.cuda.max_memory_allocated()
         best = os.path.exists(os.path.join(tmp, "ckpt", "best.pt"))
+        if best and keep_best:
+            best_state = torch.load(os.path.join(tmp, "ckpt", "best.pt"),
+                                    map_location="cuda",
+                                    weights_only=True)["model"]
     text = "".join(tee.parts)
     if rc != 0:
         raise AssertionError(f"main exited {rc}")
@@ -480,18 +758,21 @@ def _train(arch_argv, counters, batch: int, epochs: int,
                              f"got {len(times)}")
     if not best:
         raise AssertionError("no best checkpoint written")
-    return {"phase": "train", "arch": arch_argv[1], "steps": epochs * steps,
+    res = {"phase": "train", "arch": arch, "steps": epochs * steps,
             "eval_steps": epochs * -(-max(batch * steps // 4, batch)
                                      // batch),
             "launches": launches, "losses": losses, "epoch_train_s": times,
             "img_per_s_last_epoch": batch * steps / times[-1],
             "wall_s": wall, "peak_mem_bytes": peak, "best_checkpoint": best,
+            "input_wait_s": [float(t) for t in re.findall(
+                r"^Epoch \d+: .*? input_wait ([\d.]+)s", text, re.M)],
             "plan": re.findall(r"^fused-mlp .*$", text, re.M)}
+    return (res, best_state) if keep_best else res
 
 
 def _train_vit(fa, batch: int, epochs: int, steps: int) -> dict:
-    res = _train(["--arch", "vit_b16", "--attn", "flash"], [fa], batch,
-                 epochs, steps)
+    res = _train("vit_b16", ["--arch", "vit_b16", "--attn", "flash",
+                             *_ADAMW_224], [fa], batch, epochs, steps)
     for key in ("fwd", "dq", "dkv"):
         if res["launches"][key] < 12 * res["steps"]:
             raise AssertionError(f"{key} launched {res['launches'][key]} "
@@ -502,8 +783,9 @@ def _train_vit(fa, batch: int, epochs: int, steps: int) -> dict:
 
 
 def _train_convnext(fm, batch: int, epochs: int, steps: int) -> dict:
-    res = _train(["--arch", "convnext_tiny", "--fused-mlp", "on"], [fm],
-                 batch, epochs, steps)
+    res = _train("convnext_tiny", ["--arch", "convnext_tiny", "--fused-mlp",
+                                   "on", *_ADAMW_224], [fm], batch, epochs,
+                 steps)
     blocks = sum(_CONVNEXT_T[0])
     if not any(f"({blocks}/{blocks} blocks fused)" in ln
                for ln in res["plan"]):
@@ -519,21 +801,42 @@ def _train_convnext(fm, batch: int, epochs: int, steps: int) -> dict:
     return res
 
 
+def _train_resnet(arch, argv, counters, batch: int, epochs: int,
+                  steps: int, workers: int, keep_best: bool = False):
+    """A ResNet main path: no kernel of the port may launch (no model
+    path calls the fused block, and ResNet runs no flash or fused-MLP
+    kernel)."""
+    out = _train(arch, argv, counters, batch, epochs, steps, workers,
+                 keep_best)
+    res = out[0] if keep_best else out
+    if any(res["launches"].values()):
+        raise AssertionError(f"{arch} main path launched port kernels: "
+                             f"{res['launches']}")
+    print(json.dumps(res), flush=True)
+    return out
+
+
 _GROUPS = (  # kernel-name fragment -> group of the step breakdown
     ("mlp_fwd_kernel<", "fused_mlp_fwd"), ("mlp_bwd_kernel<", "fused_mlp_bwd"),
     ("mlp_reduce_kernel", "fused_mlp_reduce"),
+    ("bottleneck_kernel<", "fused_block"), ("batch_norm", "batch_norm"),
+    ("pool", "pooling"),
     ("fwd_kernel<", "flash_fwd"), ("dq_kernel<", "flash_dq"),
-    ("dkv_kernel<", "flash_dkv"), ("gemm", "gemm"), ("nvjet", "gemm"),
+    ("dkv_kernel<", "flash_dkv"), ("fprop", "conv"), ("dgrad", "conv"),
+    ("wgrad", "conv"), ("implicit", "conv"), ("gemm", "gemm"),
+    ("nvjet", "gemm"),
     ("xmma", "gemm"), ("cutlass", "gemm"), ("layer_norm", "layer_norm"),
     ("gammabeta", "layer_norm"),
     ("conv", "conv"), ("elementwise", "elementwise"), ("reduce", "reduce"))
 
 
-def _profile(arch: str, overrides: dict, batch: int, steps: int = 3) -> dict:
-    """Where a main-path train step's device time goes: the same AdamW
-    bf16 step as the train phase of ``arch``, ``steps`` steps timed on
-    the host clock without the profiler, then the same steps under
-    ``torch.profiler`` with device time summed per kernel."""
+def _profile(arch: str, overrides: dict, batch: int, steps: int = 3,
+             image_size: int = 224, opt=("adamw", 1e-4, 0.05)) -> dict:
+    """Where a main-path train step's device time goes: the same bf16
+    step as the train phase of ``arch`` (``opt`` = optimizer, lr, weight
+    decay), ``steps`` steps timed on the host clock without the
+    profiler, then the same steps under ``torch.profiler`` with device
+    time summed per kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from imagent_tpu_torch.models import create_model
@@ -543,14 +846,15 @@ def _profile(arch: str, overrides: dict, batch: int, steps: int = 3) -> dict:
     g = torch.Generator().manual_seed(5)
     model = create_model(arch, 1000, bf16=True, **overrides,
                          generator=torch.Generator().manual_seed(0)).cuda()
-    opt = make_optimizer(0.9, 0.05, "adamw")
+    opt_name, lr_value, wd = opt
+    opt = make_optimizer(0.9, wd, opt_name)
     state = create_train_state(model, opt)
     step = make_train_step(opt, (0.5,) * 3, (0.5,) * 3)
-    images = torch.randint(0, 256, (batch, 224, 224, 3), generator=g,
-                           dtype=torch.uint8).cuda()
+    images = torch.randint(0, 256, (batch, image_size, image_size, 3),
+                           generator=g, dtype=torch.uint8).cuda()
     labels = torch.randint(0, 1000, (batch,), generator=g,
                            dtype=torch.int32).cuda()
-    lr = torch.tensor(1e-4, device="cuda")
+    lr = torch.tensor(lr_value, device="cuda")
 
     def run():
         nonlocal state
@@ -580,7 +884,8 @@ def _profile(arch: str, overrides: dict, batch: int, steps: int = 3) -> dict:
                       if frag in name.lower()), "other")
         groups[group] = groups.get(group, 0.0) + ms
     busy = sum(ms for ms, _, _ in kernels)
-    res = {"phase": "profile", "arch": arch, "batch": batch, "steps": steps,
+    res = {"phase": "profile", "arch": arch, "batch": batch,
+           "image_size": image_size, "optimizer": opt_name, "steps": steps,
            "step_ms": step_ms, "device_ms_per_step": busy,
            "idle_share": 1.0 - busy / step_ms if kernels else None,
            "launches_per_step": sum(c for _, c, _ in kernels),
@@ -591,7 +896,8 @@ def _profile(arch: str, overrides: dict, batch: int, steps: int = 3) -> dict:
     return res
 
 
-def _kernel_rows(card, timing, errs, train, fused, fused_errs, fused_train):
+def _kernel_rows(card, timing, errs, train, fused, fused_errs, fused_train,
+                 block, block_errs, block_check, resnet_trains):
     rows = []
     for name, key, replaces in _KERNELS:
         t = timing[key]
@@ -620,6 +926,36 @@ def _kernel_rows(card, timing, errs, train, fused, fused_errs, fused_train):
                        workspace_bytes=t["workspace_bytes"],
                        workspace_write_ms=t["workspace_write_ms"])
         rows.append(row)
+    name, replaces = _BLOCK_KERNEL
+    sums = {k: sum(t[k] for t in block.values())
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                      "t_bytes_ms", "t_ops_ms")}
+    rows.append({
+        "name": name, "route": "cuda", "source": _BLOCK_SOURCE,
+        "replaces": replaces, "launches": block_check["launches_fp32"],
+        "launches_per": "the model check: one eval forward's 12 identity "
+                        "bottlenecks of the trained ResNet-50 (fp32), "
+                        "counters zeroed just before",
+        "main_path_launches": {res["arch"]: res["launches"][name]
+                               for res in resnet_trains},
+        "max_abs_err": max(block_errs.values()),
+        "tolerance": "|err| <= 0.03 + 0.03 * |plain| (bf16, B=64 shapes)",
+        "model_check_max_abs_err": max(block_check["max_abs_err_fp32"]),
+        "model_check_tolerance": block_check["tolerance_fp32"],
+        "ms": sums["ms"], "plain_ms": sums["plain_ms"],
+        "bound_ms": sums["bound_ms"],
+        "bound_by": ("bytes" if sums["t_bytes_ms"] >= sums["t_ops_ms"]
+                     else "operations"),
+        "library_ms": sums["library_ms"],
+        "library": "unfused cuDNN/cuBLAS bf16 schedule (addmm, conv2d, "
+                   "addmm)",
+        "per": "one launch at each of the 4 ResNet-50 identity geometries "
+               "(B=64, bf16), summed",
+        "per_geometry": {f"{hw}x{hw} C={c} F={f}": {
+            k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                              "bound_by", "tile")}
+            for (hw, c, f), t in block.items()},
+        "passed": True})
     return rows
 
 
@@ -639,6 +975,7 @@ def main(argv=None) -> int:
         return 1
     from imagent_tpu_torch.ops import _cuda
     from imagent_tpu_torch.ops import flash_attention as fa
+    from imagent_tpu_torch.ops import fused_block as fb
     from imagent_tpu_torch.ops import fused_mlp as fm
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -649,7 +986,7 @@ def main(argv=None) -> int:
     peaks = _peaks(card)
 
     t0 = time.perf_counter()
-    sources = ("flash_attention", "fused_mlp")
+    sources = ("flash_attention", "fused_mlp", "fused_block")
     _cuda.build(sources)
     spills = {}
     for src in sources:
@@ -701,13 +1038,42 @@ def main(argv=None) -> int:
     fused = _fused_step_totals(fused_per_width)
     print(json.dumps({"phase": "fused_step_totals", "card": card, **fused}),
           flush=True)
+
+    lib_block_smem = fb._kernels().fused_block_smem_bytes
+    for th, tw in fb.TILES:
+        for f in (40, 64, 512):
+            if lib_block_smem(th, tw, f) != fb.smem_bytes(th, tw, f):
+                raise AssertionError(
+                    f"fused_block smem at {th}x{tw} F={f}: kernel "
+                    f"{lib_block_smem(th, tw, f)} != plan "
+                    f"{fb.smem_bytes(th, tw, f)}")
+    block_errs = {}
+    for hw, c, f in _R50_BLOCKS:
+        for dtype in (torch.bfloat16, torch.float32):
+            err = _block_compare(fb, (_BATCH, hw, hw, c, f), dtype, hw + c)
+            if dtype == torch.bfloat16:
+                block_errs[(hw, c, f)] = err
+    for dtype in (torch.bfloat16, torch.float32):
+        _block_compare(fb, _RAGGED_BLOCK, dtype, 5)
+    block = _block_timings(fb, peaks, card)
     if args.kernels_only:
         return 0
     _vit_check(fa)
 
     vit = _train_vit(fa, _BATCH, epochs=2, steps=4)
     convnext = _train_convnext(fm, _BATCH, epochs=2, steps=3)
-    for res in (vit, convnext):
+    ports = [fa, fm, fb]
+    # Main path 3: the default command, no --arch (ResNet-18 at 448 px,
+    # SGD lr 0.1 momentum 0.9 wd 1e-4, bf16): only the batch and the data.
+    resnet18 = _train_resnet("resnet18 (default)", [], ports, 128, epochs=2,
+                             steps=3, workers=8)
+    # Main path 4: bench.py:263's ResNet-50 cell, batch 256 cut to 64.
+    resnet50, best50 = _train_resnet(
+        "resnet50", ["--arch", "resnet50", "--image-size", "224"], ports,
+        _BATCH, epochs=2, steps=3, workers=8, keep_best=True)
+    block_check = _block_model_check(fb, best50, _BATCH)
+    del best50
+    for res in (vit, convnext, resnet18, resnet50):
         print(json.dumps({"phase": "train_summary", "arch": res["arch"],
                           "card": card,
                           "img_per_s": res["img_per_s_last_epoch"],
@@ -715,8 +1081,12 @@ def main(argv=None) -> int:
               flush=True)
     _profile("vit_b16", {"attn_impl": "flash"}, _BATCH)
     _profile("convnext_tiny", {"fused_mlp": "on"}, _BATCH)
+    sgd = ("sgd", 0.1, 1e-4)
+    _profile("resnet18", {}, 128, image_size=448, opt=sgd)
+    _profile("resnet50", {}, _BATCH, opt=sgd)
     rows = _kernel_rows(card, timing, main_errs, vit, fused, fused_errs,
-                        convnext)
+                        convnext, block, block_errs, block_check,
+                        (resnet18, resnet50))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

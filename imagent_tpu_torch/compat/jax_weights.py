@@ -1,5 +1,5 @@
-"""Carry ViT and ConvNeXt weights between the JAX package's Flax param
-trees and this port's modules.
+"""Carry ResNet, ViT and ConvNeXt weights between the JAX package's Flax
+param trees and this port's modules.
 
 ``params`` is the Flax tree of ``imagent_tpu/models/vit.py`` as nested
 dicts of numpy arrays (``jax.device_get`` of a ``TrainState.params``);
@@ -24,6 +24,17 @@ kernels HWIO <-> OIHW (the depthwise ``(7, 7, 1, C)`` <-> ``(C, 1, 7,
 ``[in, out]`` <-> ``nn.Linear`` weight ``[out, in]``; ``pwconv1``/
 ``pwconv2`` keep Flax's ``kernel``/``bias`` as they are, and
 ``layer_scale`` carries across.
+
+ResNet (``resnet_params_from_jax`` / ``resnet_params_to_jax``): the
+port keeps the Flax module names too (``conv1``, ``bn1``,
+``layer{i}_block{j}.Conv_{k}`` / ``.BatchNorm_{k}``, ``downsample_conv``
+/ ``downsample_bn``, ``fc``), and the layout is that of
+``imagent_tpu/compat/torch_weights.py`` (``resnet_from_torch`` /
+``resnet_to_torch``): conv kernels HWIO <-> OIHW (a grouped kernel
+``(3, 3, F / g, F)`` <-> ``(F, F / g, 3, 3)``), the head's Dense
+``[in, out]`` <-> ``nn.Linear`` ``[out, in]``, BatchNorm scale/bias <->
+weight/bias from ``params`` and mean/var <-> running_mean/running_var
+from ``batch_stats``.
 """
 
 from __future__ import annotations
@@ -171,3 +182,55 @@ def convnext_params_to_jax(state_dict: dict) -> dict:
         else:  # biases, the Dense kernels, layer_scale
             node[leaf] = value
     return params
+
+
+def resnet_params_from_jax(params: dict,
+                           batch_stats: dict) -> dict[str, torch.Tensor]:
+    """Flax ResNet ``params`` and ``batch_stats`` -> the port's
+    state_dict (fp32 tensors, BN running statistics included)."""
+    sd = {}
+
+    def walk(node: dict, prefix: str, module: str) -> None:
+        for name, leaf in node.items():
+            if isinstance(leaf, dict):
+                walk(leaf, f"{prefix}{name}.", name)
+            elif name == "kernel" and module == "fc":
+                sd[f"{prefix}weight"] = np.asarray(leaf).T
+            elif name == "kernel":  # conv1, Conv_k, downsample_conv
+                sd[f"{prefix}weight"] = np.asarray(leaf).transpose(3, 2, 0, 1)
+            elif name == "scale":
+                sd[f"{prefix}weight"] = leaf
+            elif name in ("mean", "var"):
+                sd[f"{prefix}running_{name}"] = leaf
+            else:  # BN and head biases
+                sd[f"{prefix}{name}"] = leaf
+
+    walk(params, "", "")
+    walk(batch_stats, "", "")
+    return {k: _t(v) for k, v in sd.items()}
+
+
+def resnet_params_to_jax(state_dict: dict) -> tuple[dict, dict]:
+    """The port's ResNet state_dict -> ``(params, batch_stats)``, the
+    Flax trees (numpy fp32)."""
+    params: dict = {}
+    stats: dict = {}
+    for key, value in state_dict.items():
+        value = value.detach().cpu().float().numpy() if torch.is_tensor(
+            value) else np.asarray(value, np.float32)
+        *path, leaf = key.split(".")
+        tree = stats if leaf.startswith("running_") else params
+        node = tree
+        for name in path:
+            node = node.setdefault(name, {})
+        if path[-1] == "fc" and leaf == "weight":
+            node["kernel"] = value.T
+        elif leaf == "weight" and value.ndim == 4:
+            node["kernel"] = value.transpose(2, 3, 1, 0)
+        elif leaf == "weight":  # BatchNorm
+            node["scale"] = value
+        elif leaf.startswith("running_"):
+            node[leaf[len("running_"):]] = value
+        else:
+            node[leaf] = value
+    return params, stats

@@ -731,12 +731,14 @@ PORTED = frozenset({
     "ckpt_dir", "resume", "dataset", "synthetic_size", "bf16",
     "prefetch_depth", "warmup_epochs", "label_smoothing", "grad_accum",
     "schedule", "eval_every", "log_every", "health_stats", "max_bad_steps",
-    "attn", "fused_qkv", "register_tokens", "fused_mlp",
+    "attn", "fused_qkv", "register_tokens", "fused_mlp", "stem",
 })
 # Values of the ported fields that this slice supports.
-PORTED_ARCHS = ("vit_b16", "vit_l16", "vit_h14", "vit_debug",
-                "convnext_tiny", "convnext_small", "convnext_base",
-                "convnext_large")
+PORTED_ARCHS = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
+                "resnext50_32x4d", "resnext101_32x8d", "wide_resnet50_2",
+                "wide_resnet101_2", "vit_b16", "vit_l16", "vit_h14",
+                "vit_debug", "convnext_tiny", "convnext_small",
+                "convnext_base", "convnext_large")
 PORTED_OPTIMIZERS = ("sgd", "adamw")
 PORTED_DATASETS = ("synthetic",)
 BACKENDS = ("gpu", "cpu")

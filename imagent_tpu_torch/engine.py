@@ -2,9 +2,13 @@
 summary (the main-path half of ``imagent_tpu/engine.py``, ported to
 PyTorch).
 
-One process on one device: the ViT and ConvNeXt families through the
-synthetic loader, train and eval steps from ``train.py``, best/last
-checkpoints, TensorBoard scalars on the master. Host-sync discipline
+One process on one device: the ResNet, ViT and ConvNeXt families
+through the synthetic loader, train and eval steps from ``train.py``
+(which put the model in train or eval mode themselves, so BatchNorm
+normalises by batch statistics in training and by its running ones in
+``evaluate``), best/last checkpoints (BatchNorm's running statistics
+included: a rollback or ``--resume`` restores them), TensorBoard scalars
+on the master. Host-sync discipline
 follows the JAX engine: steps are dispatched asynchronously and the
 per-step metric vectors are read ``_GUARD_LAG`` steps behind the dispatch
 (``_LaggedMetrics``), so the host reads only vectors whose step has
@@ -237,6 +241,8 @@ def _fused_mlp_plan_line(cfg: Config, device) -> str | None:
 def _model_overrides(cfg: Config) -> dict:
     if cfg.arch.startswith("convnext"):
         return {"fused_mlp": cfg.fused_mlp}
+    if not cfg.arch.startswith("vit"):
+        return {"stem": cfg.stem}
     return {"attn_impl": cfg.attn, "fused_qkv": cfg.fused_qkv,
             "register_tokens": cfg.register_tokens}
 

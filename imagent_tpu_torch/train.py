@@ -12,10 +12,15 @@ The step keeps the JAX step's contract:
   AdamW written to match ``optax`` (``make_optimizer``), not
   ``torch.optim``;
 * the non-finite guard: ``gnorm2`` (``_sq_sum`` of the gradients) and the
-  metric vector decide ``ok`` (``_nonfinite_local``); every parameter and
-  optimizer slot then takes ``torch.where(ok, new, old)``
-  (``_skip_if_bad``) and a skipped step returns the all-zero metric
-  vector. Nothing in the step reads a value back to the host;
+  metric vector decide ``ok`` (``_nonfinite_local``); every parameter,
+  optimizer slot and buffer (BatchNorm's running statistics) then takes
+  ``torch.where(ok, new, old)`` (``_skip_if_bad``) and a skipped step
+  returns the all-zero metric vector. Nothing in the step reads a value
+  back to the host;
+* the train step runs the model in train mode (BatchNorm normalises by
+  the batch statistics and updates its running ones, chained through
+  the micro-batches in order), the eval step in eval mode (the running
+  statistics), as the JAX step's ``train=True``/``False``;
 * the step returns ``[loss_sum, top1, top5, n]`` then ``HEALTH_FIELDS``
   when ``health_stats`` is on.
 
@@ -230,7 +235,13 @@ def make_train_step(optimizer, mean, std, label_smoothing: float = 0.0,
     prep = make_input_prep(mean, std)
 
     def step(state: TrainState, images, labels, lr):
+        state.model.train()
         params = state.params()
+        # BatchNorm updates its running statistics in place during the
+        # forward pass (chained through the micro-batches in order); the
+        # pre-step values are kept for the guard.
+        buffers = dict(state.model.named_buffers())
+        old_buffers = {n: b.clone() for n, b in buffers.items()}
         grads, local = _accumulate(state.model, params, prep(images), labels,
                                    label_smoothing, grad_accum)
         with torch.no_grad():
@@ -246,6 +257,8 @@ def make_train_step(optimizer, mean, std, label_smoothing: float = 0.0,
                     gnorm2, params, new_params)])
             for n, p in params.items():
                 p.copy_(torch.where(ok, new_params[n], p))
+            for n, b in buffers.items():
+                b.copy_(torch.where(ok, b, old_buffers[n]))
             state.opt_state = _skip_if_bad(ok, new_opt, state.opt_state)
             state.step += 1
         return state, metrics
@@ -260,6 +273,7 @@ def make_eval_step(mean, std) -> Callable:
 
     @torch.no_grad()
     def eval_step(state: TrainState, images, labels, mask):
+        state.model.eval()
         return masked_eval_metrics(state.model(prep(images)), labels, mask)
 
     return eval_step

@@ -18,7 +18,7 @@ import torch
 from imagent_tpu.config import Config as JaxConfig
 from imagent_tpu.config import build_parser as jax_parser
 from imagent_tpu_torch.__main__ import main
-from imagent_tpu_torch.config import PORTED, Config, build_parser
+from imagent_tpu_torch.config import PORTED, Config, build_parser, check_ported
 
 torch.set_num_threads(2)
 
@@ -51,7 +51,7 @@ def test_config_fields_flags_and_defaults_match_jax():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--arch", "resnet18"], ["--fsdp"], ["--optimizer", "nadam"],
+    ["--arch", "resnet50", "--remat"], ["--fsdp"], ["--optimizer", "nadam"],
     ["--dataset", "imagefolder"], ["--mixup", "0.2"], ["--remat"],
     ["--backend", "tpu"], ["--no-telemetry"],
     ["--arch", "convnext_tiny", "--remat"],
@@ -89,6 +89,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert not bad, bad
     code = ("import sys, imagent_tpu_torch.engine, imagent_tpu_torch.__main__,"
             " imagent_tpu_torch.models.convnext,"
+            " imagent_tpu_torch.models.resnet,"
+            " imagent_tpu_torch.ops.fused_block,"
             " imagent_tpu_torch.ops.fused_mlp;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
@@ -133,3 +135,54 @@ def test_convnext_fused_cpu_run_starts(tmp_path, capsys):
             "C=768 fused (18/18 blocks fused)") in out
     losses = _epochs(out)
     assert set(losses) == {1} and np.isfinite(losses[1])
+
+
+def test_default_config_is_ported():
+    """The default command's arch (resnet18), image size, optimizer and
+    every other default pass the port's check; only the default dataset
+    (imagefolder, not yet ported) needs --dataset synthetic."""
+    cfg = Config()
+    assert (cfg.arch, cfg.image_size, cfg.optimizer) == ("resnet18", 448,
+                                                         "sgd")
+    check_ported(dataclasses.replace(cfg, dataset="synthetic"))
+    with pytest.raises(ValueError, match="--dataset imagefolder"):
+        check_ported(cfg)
+
+
+def test_default_resnet18_cpu_run_checkpoints_bn_buffers_and_resumes(
+        tmp_path, capsys):
+    """No --arch: ResNet-18 at full width on 32 px images trains two
+    epochs to a finite loss; best/last checkpoints carry the BatchNorm
+    running statistics, and --resume restores them."""
+    args = ["--backend", "cpu", "--dataset", "synthetic", "--image-size",
+            "32", "--num-classes", "4", "--no-bf16", "--batch-size", "4",
+            "--synthetic-size", "16", "--workers", "0", "--log-every", "0",
+            "--save-model", "--ckpt-dir", str(tmp_path / "ckpt"),
+            "--log-dir", str(tmp_path / "tb")]
+    assert main(args + ["--epochs", "2"]) == 0
+    losses = _epochs(capsys.readouterr().out)
+    assert set(losses) == {1, 2} and all(np.isfinite(list(losses.values())))
+    for name in ("best.pt", "last.pt"):
+        model = torch.load(tmp_path / "ckpt" / name, weights_only=True)[
+            "model"]
+        assert "layer4_block1.BatchNorm_1.running_var" in model
+        assert not any(k.endswith("num_batches_tracked") for k in model)
+    last = torch.load(tmp_path / "ckpt" / "last.pt", weights_only=True)
+    stats = {k: v for k, v in last["model"].items() if "running" in k}
+    assert any(not torch.equal(v, torch.ones_like(v))
+               for k, v in stats.items() if k.endswith("running_var"))
+
+    from imagent_tpu_torch import checkpoint as ckpt_lib
+    from imagent_tpu_torch.models import create_model
+    from imagent_tpu_torch.train import create_train_state, make_optimizer
+    state = create_train_state(create_model("resnet18", 4),
+                               make_optimizer(name="sgd"))
+    meta = ckpt_lib.restore(str(tmp_path / "ckpt"), ckpt_lib.LAST, state)
+    assert meta["epoch"] == 1
+    restored = state.model.state_dict()
+    for k, v in stats.items():
+        assert torch.equal(restored[k], v), k
+
+    assert main(args + ["--epochs", "3", "--resume"]) == 0
+    out = capsys.readouterr().out
+    assert "resumed from epoch 2" in out and set(_epochs(out)) == {3}

@@ -18,6 +18,7 @@ from imagent_tpu_torch.compat import vit_params_from_jax, vit_params_to_jax
 from imagent_tpu_torch.config import PORTED_ARCHS
 from imagent_tpu_torch.models import create_model
 from imagent_tpu_torch.models.convnext import CONVNEXT_DEFS
+from imagent_tpu_torch.models.resnet import ARCH_DEFS as RESNET_DEFS
 from imagent_tpu_torch.models.vit import (
     VIT_PARAM_COUNTS, VIT_REGISTRY, VisionTransformer,
 )
@@ -70,7 +71,8 @@ def test_weight_roundtrip_is_exact():
 def test_registry_and_param_counts_match_jax():
     assert VIT_REGISTRY == JAX_REGISTRY
     assert VIT_PARAM_COUNTS == JAX_COUNTS
-    assert set(PORTED_ARCHS) == set(VIT_REGISTRY) | set(CONVNEXT_DEFS)
+    assert set(PORTED_ARCHS) == (set(VIT_REGISTRY) | set(CONVNEXT_DEFS)
+                                 | set(RESNET_DEFS))
     for arch, count in VIT_PARAM_COUNTS.items():
         with torch.device("meta"):
             m = VisionTransformer(224, **VIT_REGISTRY[arch], num_classes=1000)
@@ -115,7 +117,7 @@ def test_bf16_placement():
 
 def test_unported_families_and_overrides_refused():
     with pytest.raises(ValueError, match="not yet ported"):
-        create_model("resnet18")
+        create_model("resnet18", remat=True)
     with pytest.raises(ValueError, match="not yet ported"):
         create_model("vit_debug", image_size=16, remat=True)
     with pytest.raises(ValueError, match="not yet ported"):
