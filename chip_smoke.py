@@ -9,11 +9,17 @@ Phases, in order (any failure raises and exits non-zero):
 1. the card: name and power limit from ``nvidia-smi``;
 2. the build: every CUDA kernel of the main paths, from
    ``imagent_tpu_torch/csrc`` (nvcc, one process per source, all started
-   together);
+   together); each flash kernel's registers and spill bytes from the
+   ``-Xptxas -v`` log (the D=64 tensor-core kernels must not spill);
 3. the flash kernels: ``fwd``, ``dq`` and ``dkv`` against their plain
    PyTorch versions at ViT-B/16 shapes (N=197, H=12, D=64, the smoke's
    batch) in bf16 and fp32, and at small ragged shapes for every
-   supported head dim; timings beside SDPA as a yardstick;
+   supported head dim; two ``dkv`` runs must be bitwise identical;
+   q, k and v sliced from one fused (B, N, 3*H*D) projection at the
+   ViT-B/16 shape, read in place (16-byte aligned) and through the
+   wrapper's copy (misaligned), bitwise equal to contiguous inputs;
+   timings (bf16, and the fp32 instantiations) beside SDPA as a
+   yardstick, with each kernel's share of its bound;
 4. the fused-MLP kernels: ``fwd``, ``bwd`` and ``reduce`` against their
    plain versions at each ConvNeXt-T width (C = 96, 192, 384, 768) at
    its B=64, 224 px row count and at a ragged row count, in fp32 and
@@ -226,14 +232,106 @@ def _compare(fa, b, n, h, d, dtype, seed) -> dict:
     errs["dq"] = _max_err(f"dq {tag}", dq_k,
                           fa.dq_plain(q, k, v, do, lse_p, di), dname)
     dk_k, dv_k = fa.dkv(q, k, v, do, lse_p, di)
+    again = fa.dkv(q, k, v, do, lse_p, di)
     torch.cuda.synchronize()
+    if not (torch.equal(dk_k, again[0]) and torch.equal(dv_k, again[1])):
+        raise AssertionError(f"dkv {tag}: two runs on the same inputs "
+                             f"differ (each output tile has one owner, so "
+                             f"they must be bitwise identical)")
     dk_p, dv_p = fa.dkv_plain(q, k, v, do, lse_p, di)
     errs["dkv"] = max(_max_err(f"dk {tag}", dk_k, dk_p, dname),
                       _max_err(f"dv {tag}", dv_k, dv_p, dname))
     print(json.dumps({"phase": "compare", "shape": tag,
-                      "max_abs_err": errs, "tolerance": _TOL[dname]}),
-          flush=True)
+                      "max_abs_err": errs, "tolerance": _TOL[dname],
+                      "dkv_bitwise_repeat": True}), flush=True)
     return errs
+
+
+def _fused_qkv(b, n, h, d, dtype, seed, offset):
+    """q, k and v sliced from one (B, N, 3*H*D + offset) projection the
+    way the ViT slices its fused QKV (``models/vit.py``), ``offset``
+    elements in, and dO ``offset`` elements into a buffer of its own.
+    Offset 0 keeps every pointer and stride 16-byte aligned (the kernels
+    read the slices in place); offset 1 does not (the wrapper copies)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = h * d
+    qkv = torch.randn((b, n, 3 * w + offset), generator=g, device="cuda",
+                      dtype=torch.float32).to(dtype)
+    q, k, v = (qkv[..., offset + i * w:offset + (i + 1) * w]
+               .unflatten(-1, (h, d)) for i in range(3))
+    buf = torch.randn(b * n * w + offset, generator=g, device="cuda",
+                      dtype=torch.float32).to(dtype)
+    return q, k, v, buf[offset:].view(b, n, h, d)
+
+
+def _compare_fused_qkv(fa, b, n, h, d, dtype, seed, offset) -> dict:
+    """Each kernel on strided fused-QKV slices (``_fused_qkv``): bitwise
+    equal to the same kernel on contiguous copies, and within ``_TOL`` of
+    the plain version on the slices themselves."""
+    import torch
+    dname = str(dtype).replace("torch.", "")
+    tag = f"fused QKV offset {offset} B={b} N={n} H={h} D={d} {dname}"
+    q, k, v, do = _fused_qkv(b, n, h, d, dtype, seed, offset)
+    qc, kc, vc, doc = (t.contiguous() for t in (q, k, v, do))
+    o_p, lse_p = fa.fwd_plain(q, k, v)
+    di = fa.delta(do, o_p)
+    runs = {
+        "fwd": (lambda q, k, v, do: fa.fwd(q, k, v), (o_p, lse_p)),
+        "dq": (lambda q, k, v, do: (fa.dq(q, k, v, do, lse_p, di),),
+               (fa.dq_plain(q, k, v, do, lse_p, di),)),
+        "dkv": (lambda q, k, v, do: fa.dkv(q, k, v, do, lse_p, di),
+                fa.dkv_plain(q, k, v, do, lse_p, di)),
+    }
+    errs = {}
+    for key, (kern, plain) in runs.items():
+        got = kern(q, k, v, do)
+        ref = kern(qc, kc, vc, doc)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(got, ref)):
+            raise AssertionError(f"{key} {tag}: differs from the same kernel "
+                                 f"on contiguous copies of its inputs")
+        # LSE is fp32 at either dtype
+        errs[key] = max(_max_err(f"{key} {tag}", a, p,
+                                 "float32" if a.dtype == torch.float32
+                                 else dname)
+                        for a, p in zip(got, plain))
+    print(json.dumps({"phase": "compare_fused_qkv", "shape": tag,
+                      "max_abs_err": errs, "tolerance": _TOL[dname],
+                      "bitwise_equal_to_contiguous": True}), flush=True)
+    return errs
+
+
+def _kernel_label(mangled: str) -> str:
+    """``fwd_tc_kernel<bf16,64>`` from a mangled entry name (the name as
+    given when it does not parse)."""
+    m = re.search(r"((?:fwd|dq|dkv)(?:_tc)?_kernel)I(13__nv_bfloat16|f)?"
+                  r"Li(\d+)E", mangled)
+    if not m:
+        return mangled
+    name, dtype, d = m.groups()
+    bf16 = dtype == "13__nv_bfloat16" or "_tc_" in name
+    return f"{name}<{'bf16' if bf16 else 'fp32'},{d}>"
+
+
+def _ptxas_report(log: str) -> dict:
+    """Registers and spill bytes per kernel entry from ``-Xptxas -v``."""
+    report, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = report.setdefault(_kernel_label(m.group(1)), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return report
 
 
 def _timings(fa, b, peaks) -> dict:
@@ -281,6 +379,13 @@ def _timings(fa, b, peaks) -> dict:
                       "bound_ms": max(t_bytes, t_ops),
                       "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                       "bytes": nbytes, "flops": flops}
+        out_t[key]["bound_share"] = out_t[key]["bound_ms"] / out_t[key]["ms"]
+    # The fp32 instantiations (--no-bf16) on the same values: time only.
+    q, k, v, do, lse, di = (x.float() for x in (q, k, v, do, lse, di))
+    for key, fn in (("fwd", lambda: fa.fwd(q, k, v)),
+                    ("dq", lambda: fa.dq(q, k, v, do, lse, di)),
+                    ("dkv", lambda: fa.dkv(q, k, v, do, lse, di))):
+        out_t[key]["fp32_ms"] = _cuda_ms(fn)
     return out_t
 
 
@@ -821,6 +926,7 @@ _GROUPS = (  # kernel-name fragment -> group of the step breakdown
     ("mlp_reduce_kernel", "fused_mlp_reduce"),
     ("bottleneck_kernel<", "fused_block"), ("batch_norm", "batch_norm"),
     ("pool", "pooling"),
+    ("fwd_tc_kernel<", "flash_fwd"), ("dkv_tc_kernel<", "flash_dkv"),
     ("fwd_kernel<", "flash_fwd"), ("dq_kernel<", "flash_dq"),
     ("dkv_kernel<", "flash_dkv"), ("fprop", "conv"), ("dgrad", "conv"),
     ("wgrad", "conv"), ("implicit", "conv"), ("gemm", "gemm"),
@@ -907,6 +1013,7 @@ def _kernel_rows(card, timing, errs, train, fused, fused_errs, fused_train,
                      "max_abs_err": errs[key], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
+                     "bound_share": t["bound_share"],
                      "library_ms": t["library_ms"], "passed": True})
     tol = _fused_tol("bfloat16")
     for name, key, replaces in _FUSED_KERNELS:
@@ -946,9 +1053,10 @@ def _kernel_rows(card, timing, errs, train, fused, fused_errs, fused_train,
         "bound_ms": sums["bound_ms"],
         "bound_by": ("bytes" if sums["t_bytes_ms"] >= sums["t_ops_ms"]
                      else "operations"),
-        "library_ms": sums["library_ms"],
-        "library": "unfused cuDNN/cuBLAS bf16 schedule (addmm, conv2d, "
-                   "addmm)",
+        # No single PyTorch call computes the block: its yardstick is the
+        # unfused cuDNN/cuBLAS bf16 schedule (addmm, conv2d, addmm).
+        "library_ms": None,
+        "unfused_schedule_ms": sums["library_ms"],
         "per": "one launch at each of the 4 ResNet-50 identity geometries "
                "(B=64, bf16), summed",
         "per_geometry": {f"{hw}x{hw} C={c} F={f}": {
@@ -987,10 +1095,15 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     sources = ("flash_attention", "fused_mlp", "fused_block")
+    # Build from the sources every time, so that the compiler's report
+    # below is this tree's (a library found already built has no log).
+    for src in sources:
+        for lib in _cuda.BUILD_DIR.glob(f"lib{src}_*.so"):
+            lib.unlink()
     _cuda.build(sources)
     spills = {}
     for src in sources:
-        log = _cuda.BUILD_LOG.get(src, {}).get("log", "")
+        log = _cuda.BUILD_LOG[src]["log"]
         spills[src] = [ln.strip() for ln in log.splitlines()
                        if "spill" in ln and
                        "0 bytes spill stores, 0 bytes spill loads" not in ln]
@@ -1001,10 +1114,23 @@ def main(argv=None) -> int:
                       "per_source_s": {k: v["seconds"] for k, v in
                                        _cuda.BUILD_LOG.items()},
                       "spill_lines": spills}), flush=True)
+    flash_regs = _ptxas_report(_cuda.BUILD_LOG["flash_attention"]["log"])
+    print(json.dumps({"phase": "flash_ptxas", "kernels": flash_regs}),
+          flush=True)
+    for name in ("fwd_tc_kernel<bf16,64>", "dkv_tc_kernel<bf16,64>"):
+        regs = flash_regs.get(name)
+        if regs is None or "spill_stores" not in regs:
+            raise AssertionError(f"{name}: no register/spill report in the "
+                                 f"build log (entries: {sorted(flash_regs)})")
+        if regs["spill_stores"] or regs["spill_loads"]:
+            raise AssertionError(f"{name} spills: {regs}")
 
     n, h, d = _VIT_SHAPE["N"], _VIT_SHAPE["H"], _VIT_SHAPE["D"]
     main_errs = _compare(fa, _BATCH, n, h, d, torch.bfloat16, 1)
     _compare(fa, _BATCH, n, h, d, torch.float32, 2)
+    for dtype in (torch.bfloat16, torch.float32):
+        for offset in (0, 1):
+            _compare_fused_qkv(fa, _BATCH, n, h, d, dtype, 3 + offset, offset)
     for dim in fa.HEAD_DIMS:
         for dtype in (torch.float32, torch.bfloat16):
             _compare(fa, 2, 50, 3, dim, dtype, 10 + dim)
@@ -1019,6 +1145,7 @@ def main(argv=None) -> int:
             "library": "sdpa forward" if key == "fwd" else
                        "sdpa backward (dq, dk, dv together)",
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "bound_share": t["bound_share"], "fp32_ms": t["fp32_ms"],
             "bytes": t["bytes"], "flops": t["flops"]}), flush=True)
 
     lib_smem = fm._kernels().fused_mlp_smem_bytes

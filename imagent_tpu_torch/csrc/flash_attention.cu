@@ -7,8 +7,9 @@
 // Non-causal softmax attention with scale D^-0.5 and fp32 softmax statistics.
 //
 // Layout. q, k and v keep the JAX layout (B, N, H, D) and are read through
-// their strides (sB, sN, sH; the last dim must be contiguous), so a slice of a
-// fused QKV projection needs no copy. o, dO, dq, dk and dv are contiguous
+// their strides (sB, sN, sH; the last dim must be contiguous; the wrapper
+// makes every pointer and stride 16-byte aligned for cp.async), so a slice of
+// a fused QKV projection needs no copy. o, dO, dq, dk and dv are contiguous
 // (B, N, H, D). The per-row statistics LSE = m + log(l) and Di = rowsum(dO*O)
 // are compact fp32 (B*H, N): the TPU's 128-lane broadcast is not needed here.
 //
@@ -23,24 +24,64 @@
 //
 // Numerics follow the TPU kernel: S = Q.K^T from input-type operands with
 // fp32 accumulation (bf16 products are exact in fp32), then * scale; masked
-// keys get -0.7 * FLT_MAX, not -inf; P.V is done in fp32 (the TPU kernel
-// upcasts V); l is clamped at 1e-30.
+// keys get -0.7 * FLT_MAX, not -inf; l is clamped at 1e-30. The FMA kernels
+// do P.V, P^T.dO and dS^T.Q in fp32 (the TPU kernel upcasts the second
+// operand); the tensor-core kernels split P and dS into bf16 hi + lo
+// (below).
 //
 // What bounds it on an H100. At ViT-B/16 shapes (N = 197, D = 64) attention
 // is memory-bound: 4*N*D flops per row pair against 4 reads/writes of D
 // values per row gives ~N/2 = 100 flops per byte in bf16, below the ~295
-// the tensor cores need per byte of HBM. The design keeps every N x N
-// intermediate (S, P, dP, dS) in shared memory, so device memory sees one
-// read of each input tile and one write of each output, as in the bound.
-// This first version computes in fp32 with plain FMA loops on 64x64 tiles
-// staged through shared memory (256 threads, each owning a 4x4 patch of S
-// and a 4 x ceil(D/16) patch of the output); it is far from that bound.
+// the tensor cores need per byte of HBM. Every design here keeps each
+// N x N intermediate (S, P, dP, dS) on chip, so device memory sees one read
+// of each input tile per owner block and one write of each output.
+//
+// Two designs share this file.
+//
+// bf16 forward and dK/dV (fwd_tc_kernel, dkv_tc_kernel): tensor cores.
+// Four warps per block, 16 rows of the block's 64-row tile each (a 128-row
+// forward tile measured 2.5% faster on an H100 at the ViT-B/16 shape,
+// within noise, and fits one block per SM at D = 128). The other
+// sequence axis streams through shared memory in tiles that cp.async
+// double-buffers (16-byte copies, zero-filled past N; the next tile loads
+// while this one computes). Every product is
+// mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 with operands fed by
+// ldmatrix (.trans for the operand whose rows are the summed axis):
+//   forward: S = Q.K^T per 64-key tile; the online softmax (max, exp, row
+//     sum, the alpha rescale) works on the accumulator fragments in
+//     registers with quad shuffles; the C fragment of P is the A fragment
+//     of P.V, so S and P never touch shared memory; O is divided by l in
+//     registers and stored once, LSE once per row.
+//   dK/dV: each warp owns 16 key rows and loops over Q tiles (Q, dO, LSE
+//     and Di double-buffered), forming S^T = K.Q^T and dP^T = V.dO^T, then
+//     P^T and dS^T in registers, and accumulating dV += P^T.dO and
+//     dK += dS^T.Q with P^T and dS^T as register A fragments.
+// The TPU kernel multiplies P and dS as fp32 operands. Here each is split
+// into bf16 hi = bf16(x) and lo = bf16(x - hi), and every product with it is
+// two mma (hi, then lo): about 16 mantissa bits. Rounding them to bf16 once,
+// as FlashAttention-2 does, breaks the bf16 card bound (1e-3 + |ref|/64)
+// where one large P or dS term meets a cancelling sum: at the ViT-B/16
+// shape dK went past it on an H100 in 39 elements (max |err| 7.8e-3;
+// tests/test_torch_port_flash_tc.py emulates both roundings on the CPU
+// against the interpret-mode Pallas kernel). exp is ex2.approx on
+// log2e-scaled scores. Head dims below 16 are zero-padded to the mma depth
+// in shared memory; rows are pitched 16 bytes past their width, so the 8
+// rows an ldmatrix reads fall in 8 distinct bank groups.
+//
+// fp32 (all three kernels) and bf16 dQ (fwd_kernel, dq_kernel,
+// dkv_kernel): the first version, fp32 FMA loops on 64x64 tiles staged
+// through shared memory (256 threads, each owning a 4x4 patch of S and a
+// 4 x ceil(D/16) patch of the output). TF32 would not hold the fp32 bound.
+//
 // wgmma, TMA and warp specialisation are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -503,6 +544,530 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------- tensor-core kernels (bf16)
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kTcRows = 64;      // K/V tile rows; dK/dV's own tile: 4 warps
+constexpr int kTcThreads = 128;  // the dK/dV block: 4 warps of 16 key rows
+constexpr int kFwdWarps = 4;     // the forward block: 4 warps of 16 Q rows
+constexpr int kFwdRows = 16 * kFwdWarps;
+constexpr int kFwdThreads = 32 * kFwdWarps;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Tile geometry of head dim D: D zero-padded to the mma depth (16), a
+// shared-memory row pitch 16 bytes past it, the k16 chunks and n8 tiles of
+// the padded width, and the 16-byte chunks of a real row.
+template <int D>
+struct Tc {
+  static constexpr int DP = D < 16 ? 16 : D;
+  static constexpr int LDS = DP + 8;
+  static constexpr int KC = DP / 16;
+  static constexpr int NT = DP / 8;
+  static constexpr int CH = D / 8;
+};
+
+// The dK/dV kernel's Q tile: 64 rows, or 32 where D > 64 keeps the two
+// D-wide accumulators and the S^T and dP^T tiles within the register file.
+template <int D>
+struct DkvTile {
+  static constexpr int BQ = D > 64 ? 32 : 64;
+};
+
+template <int D>
+__host__ __device__ constexpr size_t fwd_tc_smem_bytes() {
+  // Q, then two stages each of K and V.
+  return sizeof(bf16) * (kFwdRows + 4 * kTcRows) * Tc<D>::LDS;
+}
+
+template <int D>
+__host__ __device__ constexpr size_t dkv_tc_smem_bytes() {
+  // K and V, two stages each of Q and dO, two stages each of LSE and Di.
+  return sizeof(bf16) * (2 * kTcRows + 4 * DkvTile<D>::BQ) * Tc<D>::LDS +
+         sizeof(float) * 4 * DkvTile<D>::BQ;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; a source size of 0 reads nothing and
+// writes zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most one committed group is still in flight.
+__device__ __forceinline__ void cp_async_wait_1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a.b on one 16x8 tile: a is 16x16 (row-major), b is 16x8 (col-major).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// x0 and x1 (the lower and the upper column) split into bf16 pairs with
+// x = hi + lo to about 16 mantissa bits: hi = bf16(x), lo = bf16(x - hi).
+__device__ __forceinline__ void split_bf16(uint32_t& hi, uint32_t& lo,
+                                           float x0, float x1) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// The hi and lo A fragments of a 16x16 chunk from the C fragments of its
+// two 16x8 halves (columns 0-7 and 8-15): a C fragment's layout is an A
+// fragment's.
+__device__ __forceinline__ void c_to_a(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                       const float (&c0)[4],
+                                       const float (&c1)[4]) {
+  split_bf16(hi[0], lo[0], c0[0], c0[1]);
+  split_bf16(hi[1], lo[1], c0[2], c0[3]);
+  split_bf16(hi[2], lo[2], c1[0], c1[1]);
+  split_bf16(hi[3], lo[3], c1[2], c1[3]);
+}
+
+// Two fp32 values rounded to bf16, `lo` in the low half (the lower column).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Quad reductions: the 4 lanes that hold one accumulator row.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Rows [row0, row0 + ROWS) of one (b, h) slice into a shared tile of pitch
+// Tc<D>::LDS by 16-byte cp.async; rows at or beyond N are zero-filled.
+template <int D, int ROWS>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
+                                           long long base, long long pitch,
+                                           int row0, int n_real) {
+  constexpr int CH = Tc<D>::CH;
+  for (int i = threadIdx.x; i < ROWS * CH; i += blockDim.x) {
+    const int r = i / CH;
+    const int c = i - r * CH;
+    const int n = row0 + r;
+    const bool ok = n < n_real;
+    const bf16* p = src + base + (ok ? (long long)n * pitch : 0) + c * 8;
+    cp_async16(smem_u32(dst + r * Tc<D>::LDS + c * 8), p, ok);
+  }
+}
+
+// ROWS fp32 row statistics from row0 on; rows at or beyond N read as zero.
+template <int ROWS>
+__device__ __forceinline__ void stage_stats(float* dst, const float* src,
+                                            long long base, int row0,
+                                            int n_real) {
+  for (int r = threadIdx.x; r < ROWS; r += blockDim.x) {
+    const int n = row0 + r;
+    const bool ok = n < n_real;
+    cp_async4(smem_u32(dst + r), src + base + (ok ? n : 0), ok);
+  }
+}
+
+// Zeroes columns [D, DP) of `rows` consecutive tile rows: the padding to
+// the mma depth, which no cp.async writes.
+template <int D>
+__device__ __forceinline__ void zero_pad(bf16* rows_base, int rows) {
+  if constexpr (D < Tc<D>::DP) {
+    static_assert(Tc<D>::DP - D == 8, "one 16-byte chunk of padding");
+    for (int r = threadIdx.x; r < rows; r += blockDim.x)
+      *reinterpret_cast<uint4*>(rows_base + r * Tc<D>::LDS + D) =
+          make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// Lane offsets of the three ldmatrix.x4 patterns. A operand: a 16 x 16
+// chunk (rows, depth). B by rows: two n8 tiles of 8 rows x 16 depth, the
+// rows being the product's columns (K for S = Q.K^T). B transposed: 16
+// depth rows x two n8 tiles of columns (V for P.V).
+struct Lanes {
+  int a_row, a_col, b_row, b_col, t_row, t_col;
+  __device__ __forceinline__ explicit Lanes(int lane)
+      : a_row(lane & 15),
+        a_col((lane >> 4) * 8),
+        b_row((lane & 7) + (lane >> 4) * 8),
+        b_col(((lane >> 3) & 1) * 8),
+        t_row((lane & 7) + ((lane >> 3) & 1) * 8),
+        t_col((lane >> 4) * 8) {}
+};
+
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, bf16* __restrict__ o,
+                  float* __restrict__ lse, Geom g, float scale) {
+  using G = Tc<D>;
+  constexpr int LDS = G::LDS;
+  constexpr int TILE = kTcRows * LDS;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_tc);
+  bf16* sK = sQ + kFwdRows * LDS;  // stages 0, 1
+  bf16* sV = sK + 2 * TILE;  // stages 0, 1
+
+  const int bh = blockIdx.x;
+  const int q0 = blockIdx.y * kFwdRows;
+  const int b = bh / g.H;
+  const int h = bh - b * g.H;
+  const long long in_base = (long long)b * g.sB + (long long)h * g.sH;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gid = lane >> 2;  // accumulator rows gid and gid + 8
+  const int tig = lane & 3;   // accumulator columns 2*tig, 2*tig + 1
+  const Lanes ln(lane);
+  // A warp whose 16 rows all lie at or beyond N only helps stage tiles.
+  const bool active = q0 + warp * 16 < g.N;
+  const float c = scale * kLog2e;
+
+  zero_pad<D>(sQ, kFwdRows + 4 * kTcRows);
+  stage_rows<D, kFwdRows>(sQ, q, in_base, g.sN, q0, g.N);
+  stage_rows<D, kTcRows>(sK, k, in_base, g.sN, 0, g.N);
+  stage_rows<D, kTcRows>(sV, v, in_base, g.sN, 0, g.N);
+  cp_async_commit();
+
+  uint32_t qf[G::KC][4];
+  float acc[G::NT][4];
+#pragma unroll
+  for (int j = 0; j < G::NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m_r[2] = {kNegBig, kNegBig};  // running max of the raw scores
+  float l_r[2] = {0.f, 0.f};          // this lane's part of the row sums
+
+  const int nk = (g.N + kTcRows - 1) / kTcRows;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < nk) {
+      stage_rows<D, kTcRows>(sK + (st ^ 1) * TILE, k, in_base, g.sN,
+                             (kt + 1) * kTcRows, g.N);
+      stage_rows<D, kTcRows>(sV + (st ^ 1) * TILE, v, in_base, g.sN,
+                             (kt + 1) * kTcRows, g.N);
+    }
+    cp_async_commit();
+    cp_async_wait_1();  // Q and tile kt have landed
+    __syncthreads();
+
+    if (active) {
+      if (kt == 0) {
+#pragma unroll
+        for (int kk = 0; kk < G::KC; ++kk)
+          ldsm_x4(qf[kk], smem_u32(sQ + (warp * 16 + ln.a_row) * LDS +
+                                   kk * 16 + ln.a_col));
+      }
+      const bf16* cK = sK + st * TILE;
+      const bf16* cV = sV + st * TILE;
+      const int kvalid = g.N - kt * kTcRows;  // < 64 on the last tile only
+
+      // S = Q.K^T: 16 rows x 64 keys per warp; 16-key groups past N skipped.
+      float s[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        if (jj * 16 < kvalid) {
+#pragma unroll
+          for (int kk = 0; kk < G::KC; ++kk) {
+            uint32_t bk[4];
+            ldsm_x4(bk, smem_u32(cK + (jj * 16 + ln.b_row) * LDS + kk * 16 +
+                                 ln.b_col));
+            mma_bf16(s[2 * jj], qf[kk], bk[0], bk[1]);
+            mma_bf16(s[2 * jj + 1], qf[kk], bk[2], bk[3]);
+          }
+        }
+      }
+
+      // Online softmax on the fragments: this lane holds rows gid (e = 0, 1)
+      // and gid + 8 (e = 2, 3) at columns 8*j + 2*tig + (e & 1).
+      float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (j * 8 + 2 * tig + (e & 1) >= kvalid) s[j][e] = kNegBig;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        }
+      float mc[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = quad_max(mx[r]);
+        const float alpha = ex2((m_r[r] - mx[r]) * c);
+        m_r[r] = mx[r];
+        mc[r] = mx[r] * c;
+        l_r[r] *= alpha;
+#pragma unroll
+        for (int j = 0; j < G::NT; ++j) {
+          acc[j][2 * r] *= alpha;
+          acc[j][2 * r + 1] *= alpha;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = ex2(fmaf(s[j][e], c, -mc[e >> 1]));
+          l_r[e >> 1] += s[j][e];
+        }
+
+      // acc += P.V: P's C fragments are the A fragments; V read transposed.
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        if (kc * 16 < kvalid) {
+          uint32_t ph[4], pl[4];
+          c_to_a(ph, pl, s[2 * kc], s[2 * kc + 1]);
+#pragma unroll
+          for (int dn = 0; dn < G::NT / 2; ++dn) {
+            uint32_t bv[4];
+            ldsm_x4_t(bv, smem_u32(cV + (kc * 16 + ln.t_row) * LDS +
+                                   dn * 16 + ln.t_col));
+            mma_bf16(acc[2 * dn], ph, bv[0], bv[1]);
+            mma_bf16(acc[2 * dn + 1], ph, bv[2], bv[3]);
+            mma_bf16(acc[2 * dn], pl, bv[0], bv[1]);
+            mma_bf16(acc[2 * dn + 1], pl, bv[2], bv[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with stage st before its refill
+  }
+
+  if (!active) return;
+  const long long row_pitch = (long long)g.H * D;
+  const long long out_base = (long long)b * g.N * row_pitch + (long long)h * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int n = q0 + warp * 16 + gid + 8 * r;
+    const float l = fmaxf(quad_sum(l_r[r]), 1e-30f);
+    if (n < g.N) {
+      bf16* orow = o + out_base + (long long)n * row_pitch;
+#pragma unroll
+      for (int j = 0; j < G::NT; ++j) {
+        const int d = j * 8 + 2 * tig;
+        if (d < D)
+          *reinterpret_cast<uint32_t*>(orow + d) =
+              pack_bf16(acc[j][2 * r] / l, acc[j][2 * r + 1] / l);
+      }
+      if (tig == 0) lse[(long long)bh * g.N + n] = m_r[r] * scale + logf(l);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+    dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ di,
+                  bf16* __restrict__ dk, bf16* __restrict__ dv, Geom g,
+                  float scale) {
+  using G = Tc<D>;
+  constexpr int LDS = G::LDS;
+  constexpr int BQ = DkvTile<D>::BQ;
+  constexpr int NQ = BQ / 8;  // n8 tiles of S^T across a Q tile
+  constexpr int QT = BQ * LDS;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_tc);
+  bf16* sV = sK + kTcRows * LDS;
+  bf16* sQ = sV + kTcRows * LDS;  // stages 0, 1
+  bf16* sdO = sQ + 2 * QT;        // stages 0, 1
+  float* sL = reinterpret_cast<float*>(sdO + 2 * QT);  // LSE, stages 0, 1
+  float* sD = sL + 2 * BQ;                             // Di, stages 0, 1
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kTcRows;
+  const int b = bh / g.H;
+  const int h = bh - b * g.H;
+  const long long in_base = (long long)b * g.sB + (long long)h * g.sH;
+  const long long row_pitch = (long long)g.H * D;
+  const long long out_base = (long long)b * g.N * row_pitch + (long long)h * D;
+  const long long stat_base = (long long)bh * g.N;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gid = lane >> 2;  // key rows gid and gid + 8 of the warp's 16
+  const int tig = lane & 3;
+  const Lanes ln(lane);
+  const bool active = k0 + warp * 16 < g.N;
+  const float c = scale * kLog2e;
+  const bool key_ok[2] = {k0 + warp * 16 + gid < g.N,
+                          k0 + warp * 16 + gid + 8 < g.N};
+
+  zero_pad<D>(sK, 2 * kTcRows + 4 * BQ);
+  stage_rows<D, kTcRows>(sK, k, in_base, g.sN, k0, g.N);
+  stage_rows<D, kTcRows>(sV, v, in_base, g.sN, k0, g.N);
+  stage_rows<D, BQ>(sQ, q, in_base, g.sN, 0, g.N);
+  stage_rows<D, BQ>(sdO, dout, out_base, row_pitch, 0, g.N);
+  stage_stats<BQ>(sL, lse, stat_base, 0, g.N);
+  stage_stats<BQ>(sD, di, stat_base, 0, g.N);
+  cp_async_commit();
+
+  float dka[G::NT][4], dva[G::NT][4];
+#pragma unroll
+  for (int j = 0; j < G::NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+
+  const int nq = (g.N + BQ - 1) / BQ;
+  for (int qt = 0; qt < nq; ++qt) {
+    const int st = qt & 1;
+    if (qt + 1 < nq) {
+      const int nst = st ^ 1;
+      const int r0 = (qt + 1) * BQ;
+      stage_rows<D, BQ>(sQ + nst * QT, q, in_base, g.sN, r0, g.N);
+      stage_rows<D, BQ>(sdO + nst * QT, dout, out_base, row_pitch, r0, g.N);
+      stage_stats<BQ>(sL + nst * BQ, lse, stat_base, r0, g.N);
+      stage_stats<BQ>(sD + nst * BQ, di, stat_base, r0, g.N);
+    }
+    cp_async_commit();
+    cp_async_wait_1();  // K, V and Q tile qt have landed
+    __syncthreads();
+
+    if (active) {
+      const bf16* cQ = sQ + st * QT;
+      const bf16* cdO = sdO + st * QT;
+      const float* cL = sL + st * BQ;
+      const float* cD = sD + st * BQ;
+      const int qvalid = g.N - qt * BQ;  // < BQ on the last tile only
+
+      // S^T = K.Q^T and dP^T = V.dO^T: 16 keys x BQ queries per warp.
+      float s[NQ][4], dp[NQ][4];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < G::KC; ++kk) {
+        uint32_t ka[4], va[4];
+        ldsm_x4(ka, smem_u32(sK + (warp * 16 + ln.a_row) * LDS + kk * 16 +
+                             ln.a_col));
+        ldsm_x4(va, smem_u32(sV + (warp * 16 + ln.a_row) * LDS + kk * 16 +
+                             ln.a_col));
+#pragma unroll
+        for (int jj = 0; jj < NQ / 2; ++jj) {
+          if (jj * 16 < qvalid) {
+            uint32_t bq[4], bo[4];
+            ldsm_x4(bq, smem_u32(cQ + (jj * 16 + ln.b_row) * LDS + kk * 16 +
+                                 ln.b_col));
+            ldsm_x4(bo, smem_u32(cdO + (jj * 16 + ln.b_row) * LDS + kk * 16 +
+                                 ln.b_col));
+            mma_bf16(s[2 * jj], ka, bq[0], bq[1]);
+            mma_bf16(s[2 * jj + 1], ka, bq[2], bq[3]);
+            mma_bf16(dp[2 * jj], va, bo[0], bo[1]);
+            mma_bf16(dp[2 * jj + 1], va, bo[2], bo[3]);
+          }
+        }
+      }
+
+      // P^T = exp(S^T * scale - LSE) and dS^T = P^T (dP^T - Di), LSE and Di
+      // broadcast down each query column; P^T is 0 past N either way.
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = j * 8 + 2 * tig + (e & 1);
+          const bool ok = key_ok[e >> 1] && col < qvalid;
+          const float p =
+              ok ? ex2(fmaf(s[j][e], c, -cL[col] * kLog2e)) : 0.f;
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - cD[col]);
+        }
+
+      // dV += P^T.dO and dK += dS^T.Q, with dO and Q read transposed.
+#pragma unroll
+      for (int kc = 0; kc < NQ / 2; ++kc) {
+        if (kc * 16 < qvalid) {
+          uint32_t ph[4], pl[4], dh[4], dl[4];
+          c_to_a(ph, pl, s[2 * kc], s[2 * kc + 1]);
+          c_to_a(dh, dl, dp[2 * kc], dp[2 * kc + 1]);
+#pragma unroll
+          for (int dn = 0; dn < G::NT / 2; ++dn) {
+            uint32_t bo[4], bq[4];
+            ldsm_x4_t(bo, smem_u32(cdO + (kc * 16 + ln.t_row) * LDS +
+                                   dn * 16 + ln.t_col));
+            ldsm_x4_t(bq, smem_u32(cQ + (kc * 16 + ln.t_row) * LDS +
+                                   dn * 16 + ln.t_col));
+            mma_bf16(dva[2 * dn], ph, bo[0], bo[1]);
+            mma_bf16(dva[2 * dn + 1], ph, bo[2], bo[3]);
+            mma_bf16(dka[2 * dn], dh, bq[0], bq[1]);
+            mma_bf16(dka[2 * dn + 1], dh, bq[2], bq[3]);
+            mma_bf16(dva[2 * dn], pl, bo[0], bo[1]);
+            mma_bf16(dva[2 * dn + 1], pl, bo[2], bo[3]);
+            mma_bf16(dka[2 * dn], dl, bq[0], bq[1]);
+            mma_bf16(dka[2 * dn + 1], dl, bq[2], bq[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with stage st before its refill
+  }
+
+  if (!active) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int n = k0 + warp * 16 + gid + 8 * r;
+    if (n < g.N) {
+      const long long row = out_base + (long long)n * row_pitch;
+#pragma unroll
+      for (int j = 0; j < G::NT; ++j) {
+        const int d = j * 8 + 2 * tig;
+        if (d < D) {
+          *reinterpret_cast<uint32_t*>(dk + row + d) =
+              pack_bf16(dka[j][2 * r] * scale, dka[j][2 * r + 1] * scale);
+          *reinterpret_cast<uint32_t*>(dv + row + d) =
+              pack_bf16(dva[j][2 * r], dva[j][2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
 // --------------------------------------------------------------- launches
 
 // D^-0.5 rounded once to fp32, as the JAX side's Python-float scale is.
@@ -518,14 +1083,25 @@ cudaError_t set_smem(KernelT kernel, size_t bytes) {
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, Geom g, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * fwd_smem_floats<D>();
-  cudaError_t err = set_smem(fwd_kernel<T, D>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(g.B * g.H, (g.N + kBQ - 1) / kBQ);
-  fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      g, head_scale(D));
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const dim3 grid(g.B * g.H, (g.N + kFwdRows - 1) / kFwdRows);
+    const size_t smem = fwd_tc_smem_bytes<D>();
+    cudaError_t err = set_smem(fwd_tc_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    fwd_tc_kernel<D><<<grid, kFwdThreads, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<bf16*>(o),
+        static_cast<float*>(lse), g, head_scale(D));
+  } else {
+    const dim3 grid(g.B * g.H, (g.N + kBQ - 1) / kBQ);
+    const size_t smem = sizeof(float) * fwd_smem_floats<D>();
+    cudaError_t err = set_smem(fwd_kernel<T, D>, smem);
+    if (err != cudaSuccess) return err;
+    fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o),
+        static_cast<float*>(lse), g, head_scale(D));
+  }
   return cudaGetLastError();
 }
 
@@ -549,15 +1125,27 @@ template <typename T, int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* di,
                        void* dk, void* dv, Geom g, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * dkv_smem_floats<D>();
-  cudaError_t err = set_smem(dkv_kernel<T, D>, smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid(g.B * g.H, (g.N + kBK - 1) / kBK);
-  dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(di),
-      static_cast<T*>(dk), static_cast<T*>(dv), g, head_scale(D));
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    static_assert(kTcRows == kBK, "one grid for both designs");
+    const size_t smem = dkv_tc_smem_bytes<D>();
+    cudaError_t err = set_smem(dkv_tc_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    dkv_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(di),
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), g, head_scale(D));
+  } else {
+    const size_t smem = sizeof(float) * dkv_smem_floats<D>();
+    cudaError_t err = set_smem(dkv_kernel<T, D>, smem);
+    if (err != cudaSuccess) return err;
+    dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(di),
+        static_cast<T*>(dk), static_cast<T*>(dv), g, head_scale(D));
+  }
   return cudaGetLastError();
 }
 

@@ -135,12 +135,23 @@ def _on_cuda(t) -> bool:
     return True
 
 
+def _aligned(t) -> bool:
+    """Pointer and strides are whole 16-byte units: the bf16 kernels
+    stage rows with 16-byte ``cp.async`` copies."""
+    size = t.element_size()
+    return t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+        s * size % 16 == 0 for s in t.stride()[:-1])
+
+
 def _shared_strides(q, k, v):
-    """q, k, v with unit last stride and one shared stride set (the
-    kernels take a single (sB, sN, sH)); copies only when needed."""
-    if q.stride(-1) == 1 and q.stride() == k.stride() == v.stride():
+    """q, k, v with unit last stride, 16-byte alignment and one shared
+    stride set (the kernels take a single (sB, sN, sH)); copies only when
+    needed."""
+    if q.stride() == k.stride() == v.stride() \
+            and all(_aligned(t) for t in (q, k, v)):
         return q, k, v
-    return q.contiguous(), k.contiguous(), v.contiguous()
+    return tuple(t.clone(memory_format=torch.contiguous_format)
+                 for t in (q, k, v))
 
 
 def _geometry(q):
@@ -183,7 +194,9 @@ def _bwd_inputs(q, k, v, do, lse, di):
             raise ValueError(f"{name} must be fp32 {(b, h, n)}, got "
                              f"{tuple(t.shape)} {t.dtype}")
     q, k, v = _shared_strides(q, k, v)
-    return q, k, v, do.contiguous(), lse.contiguous(), di.contiguous()
+    if not (do.is_contiguous() and _aligned(do)):
+        do = do.clone(memory_format=torch.contiguous_format)
+    return q, k, v, do, lse.contiguous(), di.contiguous()
 
 
 def dq(q, k, v, do, lse, di):

@@ -135,18 +135,33 @@ def test_rejects_unsupported_inputs(bad):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "qkv_slice"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n,d", [(197, 64), (50, 16), (33, 80), (40, 128)])
-def test_cuda_kernels_match_plain(n, d, dtype):
+@pytest.mark.parametrize("n,d", [(197, 64), (45, 8), (50, 16), (64, 32),
+                                 (33, 80), (40, 128)])
+def test_cuda_kernels_match_plain(n, d, dtype, layout):
     """Each CUDA kernel against its plain version on the card (the same
-    check chip_smoke.py makes); fp32 at 1e-4, bf16 within two ulps."""
+    check chip_smoke.py makes), for every head dim of ``HEAD_DIMS``, on
+    contiguous inputs and on q, k, v sliced from one fused QKV tensor
+    (read in place through their strides); fp32 at 1e-4, bf16 within two
+    ulps."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    assert d in fa.HEAD_DIMS
     dt = getattr(torch, dtype)
     atol, rtol = (1e-4, 1e-4) if dtype == "float32" else (1e-3, 1 / 64)
     g = torch.Generator(device="cuda").manual_seed(n + d)
-    q, k, v, do = (torch.randn((2, n, 3, d), generator=g, device="cuda")
-                   .to(dt) for _ in range(4))
+    b, h = 2, 3
+    if layout == "contiguous":
+        q, k, v = (torch.randn((b, n, h, d), generator=g, device="cuda")
+                   .to(dt) for _ in range(3))
+    else:
+        qkv = torch.randn((b, n, 3 * h * d), generator=g,
+                          device="cuda").to(dt)
+        q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].unflatten(-1, (h, d))
+                   for i in range(3))
+        assert not q.is_contiguous()
+    do = torch.randn((b, n, h, d), generator=g, device="cuda").to(dt)
     o, lse = fa.fwd(q, k, v)
     o_p, lse_p = fa.fwd_plain(q, k, v)
     torch.testing.assert_close(o.float(), o_p.float(), atol=atol, rtol=rtol)
