@@ -3,6 +3,9 @@
 NVIDIA GPU: the quickest proof that the port still builds and trains.
 
     python3 chip_smoke.py            # needs one CUDA card; no arguments
+    python3 chip_smoke.py --kernels-only   # phases 1-5 only
+    # A/B of a kernel edit: time another tree's package with this script
+    PYTHONPATH=<tree> python3 -P chip_smoke.py --timings-only
 
 Phases, in order (any failure raises and exits non-zero):
 
@@ -10,11 +13,13 @@ Phases, in order (any failure raises and exits non-zero):
 2. the build: every CUDA kernel of the main paths, from
    ``imagent_tpu_torch/csrc`` (nvcc, one process per source, all started
    together); each flash kernel's registers and spill bytes from the
-   ``-Xptxas -v`` log (the D=64 tensor-core kernels must not spill);
+   ``-Xptxas -v`` log (the three D=64 tensor-core kernels must be in it
+   and must not spill);
 3. the flash kernels: ``fwd``, ``dq`` and ``dkv`` against their plain
    PyTorch versions at ViT-B/16 shapes (N=197, H=12, D=64, the smoke's
    batch) in bf16 and fp32, and at small ragged shapes for every
-   supported head dim; two ``dkv`` runs must be bitwise identical;
+   supported head dim; two ``dq`` runs and two ``dkv`` runs must each be
+   bitwise identical;
    q, k and v sliced from one fused (B, N, 3*H*D) projection at the
    ViT-B/16 shape, read in place (16-byte aligned) and through the
    wrapper's copy (misaligned), bitwise equal to contiguous inputs;
@@ -23,8 +28,9 @@ Phases, in order (any failure raises and exits non-zero):
 4. the fused-MLP kernels: ``fwd``, ``bwd`` and ``reduce`` against their
    plain versions at each ConvNeXt-T width (C = 96, 192, 384, 768) at
    its B=64, 224 px row count and at a ragged row count, in fp32 and
-   bf16; two backward runs must be bitwise identical; timings at the
-   B=64 shapes in bf16;
+   bf16; two backward runs must be bitwise identical and the reduce
+   bitwise equal to ``reduce_plain``; timings at the B=64 shapes in bf16
+   (the reduce beside ``torch.sum(ws, 0)``);
 5. the fused-block kernel: its shared-memory formula against the plan
    rule's; the kernel against ``reference_bottleneck`` at the four
    ResNet-50 identity-block geometries at B=64 (56x56 C=256 F=64, 28x28
@@ -32,30 +38,35 @@ Phases, in order (any failure raises and exits non-zero):
    fp32 and bf16, biases from N(0, 1); timings at the four B=64 shapes in
    bf16 beside the plain version and the unfused cuDNN/cuBLAS schedule
    (``--kernels-only`` stops here);
-6. a ViT-B/16 forward with ``attn=flash`` against ``attn=full``;
+6. ViT-B/16 with ``attn=flash`` against ``attn=full`` on the same
+   weights: fp32 logits; then bf16 logits and one backward's gradients
+   of every attention parameter (``_VIT_BF16_TOL``);
 7. main path 1: ``python -m imagent_tpu_torch`` in-process on ViT-B/16
    at 224 px with ``--attn flash --optimizer adamw`` (bf16, global
    batch 64, synthetic data sized for 4 train steps and one eval batch
-   per epoch, 2 epochs, best checkpoint saved). The flash launch
+   per epoch, 2 epochs, --save-model). The flash launch
    counters are zeroed just before and read just after: every kernel
    must have run at least 12 times per step taken;
 8. main path 2: the same CLI on ConvNeXt-T at 224 px with
    ``--fused-mlp on --optimizer adamw`` (bf16, batch 64, 3 train steps
-   and one eval batch per epoch, 2 epochs, best checkpoint saved). The
+   and one eval batch per epoch, 2 epochs, --save-model). The
    plan line must fuse all 18 blocks, and the fused counters, zeroed
    just before, must read exactly 18 forward launches per train and
    eval step and 18 backward and reduce launches per train step;
 9. main path 3, the system's default command: the CLI with no
    ``--arch``, so ResNet-18 at 448 px with SGD (lr 0.1, momentum 0.9, wd
    1e-4), bf16, global batch 128 (the repo's primary cell), 3 train steps
-   and one eval batch per epoch, 2 epochs, best checkpoint saved;
+   and one eval batch per epoch, 2 epochs, --save-model;
 10. main path 4: ResNet-50 at 224 px, SGD, bf16, global batch 64, 3
-    train steps and one eval batch per epoch, 2 epochs, best checkpoint
-    saved. Every counter is zeroed before each ResNet path and must read
-    0 after it: no model path calls the fused block, as in the JAX
-    package;
+    train steps and one eval batch per epoch, 2 epochs, --save-model.
+    Every counter is zeroed before each ResNet path and must read 0
+    after it: no model path calls the fused block, as in the JAX
+    package. Every train path must write its last checkpoint; whether it
+    wrote a best one (only on a top-1 above 0, as in the JAX engine) is
+    reported;
 11. the model check: the 12 stride-1 identity bottlenecks of that trained
-    ResNet-50, eval mode, fp32, each block's input captured on one
+    ResNet-50 (its last checkpoint, after 2 epochs), eval mode, fp32,
+    each block's input captured on one
     synthetic batch, its BN folded (``fold_bn``) from the trained running
     statistics and run through ``fused_bottleneck`` with the counter
     zeroed just before and reading exactly 12 after; each held to the
@@ -178,10 +189,16 @@ def _peaks(card: str) -> dict:
 
 
 def _cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Device ms per call of ``fn`` over ``iters`` back-to-back calls.
+    The start event is queued behind the warm-up calls, with no
+    synchronize between: the card is busy when the timed calls begin, so
+    the host's latency to the first of them (tens of microseconds through
+    a Python wrapper, a few percent of a 0.1 ms kernel over 10 calls) is
+    not counted, while a function whose host side cannot keep up with
+    its device side still shows its full host time."""
     import torch
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
@@ -228,7 +245,12 @@ def _compare(fa, b, n, h, d, dtype, seed) -> dict:
                        _max_err(f"fwd LSE {tag}", lse_k, lse_p, "float32"))}
     di = fa.delta(do, o_p)
     dq_k = fa.dq(q, k, v, do, lse_p, di)
+    dq_again = fa.dq(q, k, v, do, lse_p, di)
     torch.cuda.synchronize()
+    if not torch.equal(dq_k, dq_again):
+        raise AssertionError(f"dq {tag}: two runs on the same inputs differ "
+                             f"(each output tile has one owner, so they "
+                             f"must be bitwise identical)")
     errs["dq"] = _max_err(f"dq {tag}", dq_k,
                           fa.dq_plain(q, k, v, do, lse_p, di), dname)
     dk_k, dv_k = fa.dkv(q, k, v, do, lse_p, di)
@@ -242,9 +264,20 @@ def _compare(fa, b, n, h, d, dtype, seed) -> dict:
     errs["dkv"] = max(_max_err(f"dk {tag}", dk_k, dk_p, dname),
                       _max_err(f"dv {tag}", dv_k, dv_p, dname))
     print(json.dumps({"phase": "compare", "shape": tag,
+                      "kernels": _flash_kernel_names(dtype),
                       "max_abs_err": errs, "tolerance": _TOL[dname],
+                      "dq_bitwise_repeat": True,
                       "dkv_bitwise_repeat": True}), flush=True)
     return errs
+
+
+def _flash_kernel_names(dtype) -> dict:
+    """The CUDA kernel each flash entry point launches for ``dtype``."""
+    import torch
+    if dtype == torch.bfloat16:
+        return {"fwd": "fwd_tc_kernel", "dq": "dq_tc_kernel",
+                "dkv": "dkv_tc_kernel"}
+    return {"fwd": "fwd_kernel", "dq": "dq_kernel", "dkv": "dkv_kernel"}
 
 
 def _fused_qkv(b, n, h, d, dtype, seed, offset):
@@ -297,6 +330,7 @@ def _compare_fused_qkv(fa, b, n, h, d, dtype, seed, offset) -> dict:
                                  else dname)
                         for a, p in zip(got, plain))
     print(json.dumps({"phase": "compare_fused_qkv", "shape": tag,
+                      "kernels": _flash_kernel_names(dtype),
                       "max_abs_err": errs, "tolerance": _TOL[dname],
                       "bitwise_equal_to_contiguous": True}), flush=True)
     return errs
@@ -304,14 +338,13 @@ def _compare_fused_qkv(fa, b, n, h, d, dtype, seed, offset) -> dict:
 
 def _kernel_label(mangled: str) -> str:
     """``fwd_tc_kernel<bf16,64>`` from a mangled entry name (the name as
-    given when it does not parse)."""
-    m = re.search(r"((?:fwd|dq|dkv)(?:_tc)?_kernel)I(13__nv_bfloat16|f)?"
-                  r"Li(\d+)E", mangled)
+    given when it does not parse): the tensor-core kernels are bf16, the
+    others fp32."""
+    m = re.search(r"((?:fwd|dq|dkv)(?:_tc)?_kernel)ILi(\d+)E", mangled)
     if not m:
         return mangled
-    name, dtype, d = m.groups()
-    bf16 = dtype == "13__nv_bfloat16" or "_tc_" in name
-    return f"{name}<{'bf16' if bf16 else 'fp32'},{d}>"
+    name, d = m.groups()
+    return f"{name}<{'bf16' if '_tc_' in name else 'fp32'},{d}>"
 
 
 def _ptxas_report(log: str) -> dict:
@@ -389,6 +422,28 @@ def _timings(fa, b, peaks) -> dict:
     return out_t
 
 
+def _ab_timings(fa, fm, peaks, card) -> None:
+    """``--timings-only``: the flash kernels (bf16, with their fp32
+    instantiations and SDPA) and the fused-MLP kernels per ConvNeXt-T
+    width (the reduce beside ``torch.sum``) and per step, timed by this
+    script's own functions whichever package is imported."""
+    flash = _timings(fa, _BATCH, peaks)
+    per_width = _fused_timings(fm, peaks, card)
+    steps = _fused_step_totals(per_width)
+    print(json.dumps({
+        "phase": "ab_timings", "package": os.path.dirname(fa.__file__),
+        "card": card,
+        "flash": {k: {f: t[f] for f in ("ms", "fp32_ms", "library_ms",
+                                        "bound_ms", "bound_share")}
+                  for k, t in flash.items()},
+        "reduce_per_width": {c: {"ms": w["reduce"]["ms"],
+                                 "torch_sum_ms": w["reduce"]["library_ms"],
+                                 "bound_ms": w["reduce"]["bound_ms"]}
+                             for c, w in per_width.items()},
+        "fused_step_ms": {k: t["ms"] for k, t in steps.items()},
+        "reduce_step": steps["reduce"]}), flush=True)
+
+
 def _norm_err(name, got, want, dtype_name) -> tuple:
     """``(max |got - want|, that over max |want|)``; the ratio, the
     normwise error, is held to ``_GRAD_TOL``."""
@@ -423,8 +478,19 @@ def _fused_compare(fm, c, rows, dtype, seed) -> dict:
     dh_k, ws = fm.bwd_partials(*bwd_args)
     flat = fm.reduce_partials(ws)
     torch.cuda.synchronize()
-    errs["reduce"] = _norm_err(f"fused reduce {tag}", flat,
-                               fm.reduce_plain(ws), "float32")[0]
+    # The kernel adds the slots in reduce_plain's order: bitwise equal,
+    # on the workspace (16-byte loads) and on an odd column count of its
+    # first slots (the scalar path).
+    odd = ws[:8, :-1].contiguous()
+    for what, got_r, ws_r in (("", flat, ws),
+                              (" odd columns", fm.reduce_partials(odd), odd)):
+        want_r = fm.reduce_plain(ws_r)
+        if not torch.equal(got_r.view(torch.int32), want_r.view(torch.int32)):
+            raise AssertionError(
+                f"fused reduce {tag}{what}: not bitwise equal to reduce_plain"
+                f" (max |err| {float((got_r - want_r).abs().max()):.3e})")
+    del odd
+    errs["reduce"] = 0.0
     got = (dh_k, *fm.split_grads(flat, c))
     again = fm.bwd(*bwd_args)
     torch.cuda.synchronize()
@@ -451,8 +517,7 @@ def _fused_tol(dname) -> dict:
     elementwise = f"|err| <= {atol} + {rtol} * |plain|"
     return {"fwd": elementwise, "bwd": elementwise,
             "bwd_grads": f"max |err| / max |plain| <= {_GRAD_TOL[dname]}",
-            "reduce": f"max |err| / max |plain| <= "
-                      f"{_GRAD_TOL['float32']}"}
+            "reduce": "bitwise equal to reduce_plain"}
 
 
 def _bound(nbytes, flops, peak_flops, peaks) -> dict:
@@ -682,9 +747,10 @@ def _folded(block):
     return [t.detach().contiguous() for t in (w1, b1, w3, b3, wc, bc)]
 
 
-def _block_model_check(fb, best_state, batch: int) -> dict:
+def _block_model_check(fb, trained_state, batch: int) -> dict:
     """The fused kernel against the 12 identity bottlenecks of the
-    trained ResNet-50 (``best_state``), eval mode, fp32: each block's
+    trained ResNet-50 (``trained_state``: its last checkpoint, after 2
+    epochs), eval mode, fp32: each block's
     input and output captured by forward hooks on one synthetic batch,
     its BN folded from the trained running statistics; exactly 12
     launches; held to the block's fp32 output (``_MODEL_TOL``) and to its
@@ -695,7 +761,7 @@ def _block_model_check(fb, best_state, batch: int) -> dict:
     from imagent_tpu_torch.models import create_model
     from imagent_tpu_torch.train import make_input_prep
     model = create_model("resnet50", 1000, bf16=False).cuda().eval()
-    model.load_state_dict(best_state, strict=True)
+    model.load_state_dict(trained_state, strict=True)
     blocks = _identity_blocks(model)
     seen = {}
     hooks = [blk.register_forward_hook(
@@ -797,6 +863,91 @@ def _vit_check(fa) -> None:
                              f"{err:.3e} > {tol:.3e}")
 
 
+# The bf16 ViT-B/16 check, flash against full attention on the same
+# weights: the logits and one backward's gradient of every attention
+# parameter, each held normwise, max |flash - full| <= tol * max |full|.
+# The kernels' own bf16 bound is two bf16 ulps of each element (rtol 1/64
+# in _TOL); in the model, every layer's attention output may differ by
+# that much, and the difference is carried through 12 layers of bf16
+# activations, GEMMs and LayerNorms (full attention itself rounds P to
+# bf16, the kernels split it), so the model-level bound is twice the
+# kernel's, 1/32, over the tensor's largest magnitude. Chosen before the
+# check's first run on the card.
+_VIT_BF16_TOL = 1.0 / 32
+
+
+def _vit_bf16_check(fa) -> dict:
+    """ViT-B/16 in bf16 with attn=flash (the tensor-core kernels: the
+    smoke's first run of them inside a model) against attn=full on the
+    same random weights and images: logits, and the gradients of a
+    cross-entropy loss with respect to each block's in_proj and out_proj
+    parameters. The distance of both to the fp32 full model is reported
+    beside it (the bf16 model's own rounding, for scale)."""
+    import torch
+    import torch.nn.functional as F
+    from imagent_tpu_torch.models import create_model
+    g = torch.Generator().manual_seed(4)
+    x = torch.randint(0, 256, (2, 224, 224, 3), generator=g,
+                      dtype=torch.uint8).cuda().float() / 255.0
+    labels = torch.randint(0, 1000, (2,), generator=g).cuda()
+    weights = None
+
+    def run(attn, bf16):
+        nonlocal weights
+        model = create_model("vit_b16", 1000, bf16=bf16, attn_impl=attn,
+                             generator=torch.Generator().manual_seed(0))
+        model = model.cuda()
+        if weights is None:
+            weights = model.state_dict()
+        model.load_state_dict(weights)
+        logits = model(x)
+        params = {k: p for k, p in model.named_parameters()
+                  if ".self_attention." in k}
+        grads = torch.autograd.grad(F.cross_entropy(logits, labels),
+                                    list(params.values()))
+        torch.cuda.synchronize()
+        return {"logits": logits.detach().float(), **dict(zip(params, grads))}
+
+    full = run("full", True)
+    fa.reset_launches()
+    flash = run("flash", True)
+    launches = dict(fa.LAUNCHES)
+    ref = run("full", False)
+    if any(n < 12 for n in launches.values()):
+        raise AssertionError(f"bf16 ViT-B/16 flash check launched {launches}"
+                             f"; expected >= 12 of each kernel")
+
+    def norm_err(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+    errs = {}
+    for name, want in full.items():
+        got = flash[name]
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"bf16 ViT-B/16 flash {name}: non-finite")
+        errs[name] = norm_err(got, want)
+    worst = max((k for k in errs if k != "logits"), key=errs.get)
+    res = {"phase": "vit_bf16", "batch": 2, "launches": launches,
+           "logits_norm_err": errs["logits"],
+           "grads_worst_norm_err": errs[worst], "grads_worst": worst,
+           "grads_checked": len(errs) - 1,
+           "tolerance": f"max |flash - full| <= {_VIT_BF16_TOL} * max |full|"
+                        " (logits and each attention parameter's gradient)",
+           "full_bf16_vs_fp32": {
+               "logits": norm_err(full["logits"], ref["logits"]),
+               "grads_worst": max(norm_err(full[k], ref[k])
+                                  for k in errs if k != "logits")},
+           "flash_bf16_vs_fp32": {
+               "logits": norm_err(flash["logits"], ref["logits"]),
+               "grads_worst": max(norm_err(flash[k], ref[k])
+                                  for k in errs if k != "logits")}}
+    print(json.dumps(res), flush=True)
+    bad = {k: v for k, v in errs.items() if v > _VIT_BF16_TOL}
+    if bad:
+        raise AssertionError(f"bf16 ViT-B/16 flash vs full: normwise errors "
+                             f"above {_VIT_BF16_TOL}: {bad}")
+    return res
+
+
 class _Tee(io.TextIOBase):
     def __init__(self, out):
         self.out = out
@@ -816,16 +967,20 @@ _ADAMW_224 = ["--optimizer", "adamw", "--lr", "1e-4", "--weight-decay",
 
 
 def _train(arch, argv, counters, batch: int, epochs: int, steps: int,
-           workers: int = 4, keep_best: bool = False) -> dict:
+           workers: int = 4, keep_last: bool = False) -> dict:
     """A main path through the CLI entry point with ``argv`` (the arch,
     optimizer and image-size flags; synthetic data for ``steps`` train
     steps per epoch is added here), its launch counters (``counters``:
     modules with ``LAUNCHES``/``reset_launches``) zeroed just before and
-    read just after; returns its numbers, and with ``keep_best`` the best
-    checkpoint's model state_dict (on the card) under ``best_state``."""
+    read just after; returns its numbers, and with ``keep_last`` also the
+    last checkpoint's model state_dict (on the card): the state after the
+    run's last epoch. The last checkpoint must exist; a best one is
+    written only when top-1 improves on 0 (as in the JAX engine), which
+    random weights over 1000 classes need not do, so whether it exists
+    is reported, not required."""
     import torch
     from imagent_tpu_torch.__main__ import main
-    best_state = None
+    last_state = None
     with tempfile.TemporaryDirectory() as tmp:
         argv = [*argv, "--num-classes", "1000", "--dataset", "synthetic",
                 "--batch-size", str(batch),
@@ -846,8 +1001,9 @@ def _train(arch, argv, counters, batch: int, epochs: int, steps: int,
         launches = {k: v for mod in counters for k, v in mod.LAUNCHES.items()}
         peak = torch.cuda.max_memory_allocated()
         best = os.path.exists(os.path.join(tmp, "ckpt", "best.pt"))
-        if best and keep_best:
-            best_state = torch.load(os.path.join(tmp, "ckpt", "best.pt"),
+        last = os.path.exists(os.path.join(tmp, "ckpt", "last.pt"))
+        if last and keep_last:
+            last_state = torch.load(os.path.join(tmp, "ckpt", "last.pt"),
                                     map_location="cuda",
                                     weights_only=True)["model"]
     text = "".join(tee.parts)
@@ -861,18 +1017,19 @@ def _train(arch, argv, counters, batch: int, epochs: int, steps: int,
     if len(times) != epochs:
         raise AssertionError(f"expected {epochs} epoch summaries, "
                              f"got {len(times)}")
-    if not best:
-        raise AssertionError("no best checkpoint written")
+    if not last:
+        raise AssertionError("no last checkpoint written")
     res = {"phase": "train", "arch": arch, "steps": epochs * steps,
             "eval_steps": epochs * -(-max(batch * steps // 4, batch)
                                      // batch),
             "launches": launches, "losses": losses, "epoch_train_s": times,
             "img_per_s_last_epoch": batch * steps / times[-1],
-            "wall_s": wall, "peak_mem_bytes": peak, "best_checkpoint": best,
+            "wall_s": wall, "peak_mem_bytes": peak, "last_checkpoint": last,
+            "best_checkpoint": best,
             "input_wait_s": [float(t) for t in re.findall(
                 r"^Epoch \d+: .*? input_wait ([\d.]+)s", text, re.M)],
             "plan": re.findall(r"^fused-mlp .*$", text, re.M)}
-    return (res, best_state) if keep_best else res
+    return (res, last_state) if keep_last else res
 
 
 def _train_vit(fa, batch: int, epochs: int, steps: int) -> dict:
@@ -907,13 +1064,13 @@ def _train_convnext(fm, batch: int, epochs: int, steps: int) -> dict:
 
 
 def _train_resnet(arch, argv, counters, batch: int, epochs: int,
-                  steps: int, workers: int, keep_best: bool = False):
+                  steps: int, workers: int, keep_last: bool = False):
     """A ResNet main path: no kernel of the port may launch (no model
     path calls the fused block, and ResNet runs no flash or fused-MLP
     kernel)."""
     out = _train(arch, argv, counters, batch, epochs, steps, workers,
-                 keep_best)
-    res = out[0] if keep_best else out
+                 keep_last)
+    res = out[0] if keep_last else out
     if any(res["launches"].values()):
         raise AssertionError(f"{arch} main path launched port kernels: "
                              f"{res['launches']}")
@@ -926,7 +1083,8 @@ _GROUPS = (  # kernel-name fragment -> group of the step breakdown
     ("mlp_reduce_kernel", "fused_mlp_reduce"),
     ("bottleneck_kernel<", "fused_block"), ("batch_norm", "batch_norm"),
     ("pool", "pooling"),
-    ("fwd_tc_kernel<", "flash_fwd"), ("dkv_tc_kernel<", "flash_dkv"),
+    ("fwd_tc_kernel<", "flash_fwd"), ("dq_tc_kernel<", "flash_dq"),
+    ("dkv_tc_kernel<", "flash_dkv"),
     ("fwd_kernel<", "flash_fwd"), ("dq_kernel<", "flash_dq"),
     ("dkv_kernel<", "flash_dkv"), ("fprop", "conv"), ("dgrad", "conv"),
     ("wgrad", "conv"), ("implicit", "conv"), ("gemm", "gemm"),
@@ -1024,6 +1182,7 @@ def _kernel_rows(card, timing, errs, train, fused, fused_errs, fused_train,
                "max_abs_err": fused_errs[key], "tolerance": tol[key],
                "ms": t["ms"], "plain_ms": t["plain_ms"],
                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+               "bound_share": t["bound_ms"] / t["ms"],
                "library_ms": t["library_ms"],
                "per": "one ConvNeXt-T train step (18 blocks, B=64)",
                "passed": True}
@@ -1053,6 +1212,7 @@ def _kernel_rows(card, timing, errs, train, fused, fused_errs, fused_train,
         "bound_ms": sums["bound_ms"],
         "bound_by": ("bytes" if sums["t_bytes_ms"] >= sums["t_ops_ms"]
                      else "operations"),
+        "bound_share": sums["bound_ms"] / sums["ms"],
         # No single PyTorch call computes the block: its yardstick is the
         # unfused cuDNN/cuBLAS bf16 schedule (addmm, conv2d, addmm).
         "library_ms": None,
@@ -1074,6 +1234,14 @@ def main(argv=None) -> int:
                          "compiler's register/spill report, compare and "
                          "time the kernels, then stop (no train phase, no "
                          "result line)")
+    ap.add_argument("--timings-only", action="store_true",
+                    help="A/B of a kernel edit against another tree's "
+                         "package (PYTHONPATH=<tree> python3 -P "
+                         "chip_smoke.py --timings-only): build, time the "
+                         "flash and fused-MLP kernels as the kernel phases "
+                         "do, print one ab_timings line and stop; no "
+                         "comparison and no gate, since the other tree may "
+                         "lack a kernel that this one checks")
     args = ap.parse_args(argv)
 
     import torch
@@ -1114,10 +1282,14 @@ def main(argv=None) -> int:
                       "per_source_s": {k: v["seconds"] for k, v in
                                        _cuda.BUILD_LOG.items()},
                       "spill_lines": spills}), flush=True)
+    if args.timings_only:
+        _ab_timings(fa, fm, peaks, card)
+        return 0
     flash_regs = _ptxas_report(_cuda.BUILD_LOG["flash_attention"]["log"])
     print(json.dumps({"phase": "flash_ptxas", "kernels": flash_regs}),
           flush=True)
-    for name in ("fwd_tc_kernel<bf16,64>", "dkv_tc_kernel<bf16,64>"):
+    for name in ("fwd_tc_kernel<bf16,64>", "dq_tc_kernel<bf16,64>",
+                 "dkv_tc_kernel<bf16,64>"):
         regs = flash_regs.get(name)
         if regs is None or "spill_stores" not in regs:
             raise AssertionError(f"{name}: no register/spill report in the "
@@ -1186,6 +1358,7 @@ def main(argv=None) -> int:
     if args.kernels_only:
         return 0
     _vit_check(fa)
+    _vit_bf16_check(fa)
 
     vit = _train_vit(fa, _BATCH, epochs=2, steps=4)
     convnext = _train_convnext(fm, _BATCH, epochs=2, steps=3)
@@ -1195,11 +1368,11 @@ def main(argv=None) -> int:
     resnet18 = _train_resnet("resnet18 (default)", [], ports, 128, epochs=2,
                              steps=3, workers=8)
     # Main path 4: bench.py:263's ResNet-50 cell, batch 256 cut to 64.
-    resnet50, best50 = _train_resnet(
+    resnet50, last50 = _train_resnet(
         "resnet50", ["--arch", "resnet50", "--image-size", "224"], ports,
-        _BATCH, epochs=2, steps=3, workers=8, keep_best=True)
-    block_check = _block_model_check(fb, best50, _BATCH)
-    del best50
+        _BATCH, epochs=2, steps=3, workers=8, keep_last=True)
+    block_check = _block_model_check(fb, last50, _BATCH)
+    del last50
     for res in (vit, convnext, resnet18, resnet50):
         print(json.dumps({"phase": "train_summary", "arch": res["arch"],
                           "card": card,

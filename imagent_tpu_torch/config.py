@@ -758,6 +758,22 @@ def unported_fields(cfg: Config) -> dict:
             and _norm(getattr(cfg, f.name)) != _norm(getattr(default, f.name))}
 
 
+def default_on_unported() -> tuple:
+    """Fields outside ``PORTED`` that are True by default: subsystems
+    the JAX package runs unless told not to and this port does not run
+    (``unported_fields`` refuses only values that differ from the
+    default, so a default run would skip them without a word)."""
+    default = Config()
+    return tuple(f.name for f in dataclasses.fields(Config)
+                 if f.name not in PORTED and getattr(default, f.name) is True)
+
+
+def skipped_line() -> str:
+    """The start-up line that names ``default_on_unported()``."""
+    return ("not run by this port (on by default in the JAX package): "
+            + ", ".join(default_on_unported()))
+
+
 def check_ported(cfg: Config) -> None:
     """Raise ``ValueError`` naming what this slice does not port yet."""
     bad = unported_fields(cfg)

@@ -38,7 +38,7 @@
 //
 // Two designs share this file.
 //
-// bf16 forward and dK/dV (fwd_tc_kernel, dkv_tc_kernel): tensor cores.
+// bf16 (fwd_tc_kernel, dq_tc_kernel, dkv_tc_kernel): tensor cores.
 // Four warps per block, 16 rows of the block's 64-row tile each (a 128-row
 // forward tile measured 2.5% faster on an H100 at the ViT-B/16 shape,
 // within noise, and fits one block per SM at D = 128). The other
@@ -52,6 +52,12 @@
 //     registers with quad shuffles; the C fragment of P is the A fragment
 //     of P.V, so S and P never touch shared memory; O is divided by l in
 //     registers and stored once, LSE once per row.
+//   dQ: the forward's blocking with Q and dO resident as A fragments; per
+//     16-key group S = Q.K^T and dP = dO.V^T, then P = exp(S - LSE) and
+//     dS = P (dP - Di) on the fragments, and dQ += dS.K at once with dS as
+//     the register A fragment and K read transposed (no running statistics,
+//     so one group's S and dP are live at a time). At D > 64 the K/V tile
+//     is 32 keys.
 //   dK/dV: each warp owns 16 key rows and loops over Q tiles (Q, dO, LSE
 //     and Di double-buffered), forming S^T = K.Q^T and dP^T = V.dO^T, then
 //     P^T and dS^T in registers, and accumulating dV += P^T.dO and
@@ -61,17 +67,18 @@
 // two mma (hi, then lo): about 16 mantissa bits. Rounding them to bf16 once,
 // as FlashAttention-2 does, breaks the bf16 card bound (1e-3 + |ref|/64)
 // where one large P or dS term meets a cancelling sum: at the ViT-B/16
-// shape dK went past it on an H100 in 39 elements (max |err| 7.8e-3;
-// tests/test_torch_port_flash_tc.py emulates both roundings on the CPU
+// shape dK went past it on an H100 in 39 elements (max |err| 7.8e-3);
+// dQ's dS.K is the same kind of sum, so dS is split there too
+// (tests/test_torch_port_flash_tc.py emulates the roundings on the CPU
 // against the interpret-mode Pallas kernel). exp is ex2.approx on
 // log2e-scaled scores. Head dims below 16 are zero-padded to the mma depth
 // in shared memory; rows are pitched 16 bytes past their width, so the 8
 // rows an ldmatrix reads fall in 8 distinct bank groups.
 //
-// fp32 (all three kernels) and bf16 dQ (fwd_kernel, dq_kernel,
-// dkv_kernel): the first version, fp32 FMA loops on 64x64 tiles staged
-// through shared memory (256 threads, each owning a 4x4 patch of S and a
-// 4 x ceil(D/16) patch of the output). TF32 would not hold the fp32 bound.
+// fp32 (fwd_kernel, dq_kernel, dkv_kernel): the first version, FMA loops
+// on 64x64 tiles staged through shared memory (256 threads, each owning a
+// 4x4 patch of S and a 4 x ceil(D/16) patch of the output). TF32 would not
+// hold the fp32 bound.
 //
 // wgmma, TMA and warp specialisation are later work.
 
@@ -91,20 +98,6 @@ constexpr int kThreads = 256;  // 16 x 16 threads, each a 4x4 patch of S
 constexpr int kLDS = kBK + 1;  // padded row of an S/P/dS tile
 constexpr float kNegBig = -0.7f * FLT_MAX;  // _NEG_BIG of the TPU kernel
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 struct Geom {
   int B, H, N;
   long long sB, sN, sH;  // strides of q, k and v, in elements
@@ -112,8 +105,8 @@ struct Geom {
 
 // Rows [row0, row0 + rows) of one (b, h) slice into a float tile with row
 // pitch LD. Rows at or beyond N read as zero.
-template <typename T, int D, int LD>
-__device__ __forceinline__ void load_rows(float* dst, const T* src,
+template <int D, int LD>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           long long base, long long pitch,
                                           int row0, int rows, int n_real) {
   for (int i = threadIdx.x; i < rows * D; i += kThreads) {
@@ -121,7 +114,7 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src,
     const int d = i - r * D;
     const int n = row0 + r;
     dst[r * LD + d] =
-        n < n_real ? to_f(src[base + (long long)n * pitch + d]) : 0.f;
+        n < n_real ? src[base + (long long)n * pitch + d] : 0.f;
   }
 }
 
@@ -149,10 +142,10 @@ constexpr int dkv_smem_floats() {
 
 // ---------------------------------------------------------------- forward
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, T* __restrict__ o,
+    fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ o,
                float* __restrict__ lse, Geom g, float scale) {
   constexpr int LD = D + 1;
   constexpr int DC = (D + 15) / 16;
@@ -176,7 +169,7 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = tid >> 5;
   const int lane = tid & 31;
 
-  load_rows<T, D, LD>(sQ, q, in_base, g.sN, q0, kBQ, g.N);
+  load_rows<D, LD>(sQ, q, in_base, g.sN, q0, kBQ, g.N);
   if (tid < kBQ) {
     sM[tid] = kNegBig;
     sL[tid] = 0.f;
@@ -191,8 +184,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's readers are done
-    load_rows<T, D, LD>(sK, k, in_base, g.sN, k0, kBK, g.N);
-    load_rows<T, D, D>(sV, v, in_base, g.sN, k0, kBK, g.N);
+    load_rows<D, LD>(sK, k, in_base, g.sN, k0, kBK, g.N);
+    load_rows<D, D>(sV, v, in_base, g.sN, k0, kBK, g.N);
     __syncthreads();
 
     float s[4][4];
@@ -286,7 +279,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int jj = 0; jj < DC; ++jj) {
         const int d = tc + 16 * jj;
-        if (d < D) o[out_base + n * row_pitch + d] = from_f<T>(acc[i][jj] / l);
+        if (d < D) o[out_base + n * row_pitch + d] = acc[i][jj] / l;
       }
       if (tc == 0) lse[(long long)bh * g.N + n] = sM[r] + logf(l);
     }
@@ -295,12 +288,12 @@ __global__ void __launch_bounds__(kThreads)
 
 // --------------------------------------------------------------------- dQ
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ dout,
+    dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ di,
-              T* __restrict__ dq, Geom g, float scale) {
+              float* __restrict__ dq, Geom g, float scale) {
   constexpr int LD = D + 1;
   constexpr int DC = (D + 15) / 16;
   extern __shared__ float smem[];
@@ -323,8 +316,8 @@ __global__ void __launch_bounds__(kThreads)
   const int tr = tid >> 4;
   const int tc = tid & 15;
 
-  load_rows<T, D, LD>(sQ, q, in_base, g.sN, q0, kBQ, g.N);
-  load_rows<T, D, LD>(sdO, dout, out_base, row_pitch, q0, kBQ, g.N);
+  load_rows<D, LD>(sQ, q, in_base, g.sN, q0, kBQ, g.N);
+  load_rows<D, LD>(sdO, dout, out_base, row_pitch, q0, kBQ, g.N);
   load_stats(sLSE, lse, (long long)bh * g.N, q0, g.N);
   load_stats(sDi, di, (long long)bh * g.N, q0, g.N);
   float acc[4][DC];
@@ -337,8 +330,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();
-    load_rows<T, D, LD>(sK, k, in_base, g.sN, k0, kBK, g.N);
-    load_rows<T, D, LD>(sV, v, in_base, g.sN, k0, kBK, g.N);
+    load_rows<D, LD>(sK, k, in_base, g.sN, k0, kBK, g.N);
+    load_rows<D, LD>(sV, v, in_base, g.sN, k0, kBK, g.N);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -404,7 +397,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int jj = 0; jj < DC; ++jj) {
         const int d = tc + 16 * jj;
-        if (d < D) dq[out_base + n * row_pitch + d] = from_f<T>(acc[i][jj] * scale);
+        if (d < D) dq[out_base + n * row_pitch + d] = acc[i][jj] * scale;
       }
     }
   }
@@ -412,12 +405,13 @@ __global__ void __launch_bounds__(kThreads)
 
 // ------------------------------------------------------------------ dK/dV
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const T* __restrict__ dout,
+    dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ di,
-               T* __restrict__ dk, T* __restrict__ dv, Geom g, float scale) {
+               float* __restrict__ dk, float* __restrict__ dv, Geom g,
+               float scale) {
   constexpr int LD = D + 1;
   constexpr int DC = (D + 15) / 16;
   extern __shared__ float smem[];
@@ -441,8 +435,8 @@ __global__ void __launch_bounds__(kThreads)
   const int tr = tid >> 4;
   const int tc = tid & 15;
 
-  load_rows<T, D, LD>(sK, k, in_base, g.sN, k0, kBK, g.N);
-  load_rows<T, D, LD>(sV, v, in_base, g.sN, k0, kBK, g.N);
+  load_rows<D, LD>(sK, k, in_base, g.sN, k0, kBK, g.N);
+  load_rows<D, LD>(sV, v, in_base, g.sN, k0, kBK, g.N);
   // This thread owns K/V rows 4*tr .. 4*tr+3 and columns tc + 16*jj.
   float acc_k[4][DC], acc_v[4][DC];
 #pragma unroll
@@ -454,8 +448,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int qt = 0; qt < nq; ++qt) {
     const int q0 = qt * kBQ;
     __syncthreads();
-    load_rows<T, D, LD>(sQ, q, in_base, g.sN, q0, kBQ, g.N);
-    load_rows<T, D, LD>(sdO, dout, out_base, row_pitch, q0, kBQ, g.N);
+    load_rows<D, LD>(sQ, q, in_base, g.sN, q0, kBQ, g.N);
+    load_rows<D, LD>(sdO, dout, out_base, row_pitch, q0, kBQ, g.N);
     load_stats(sLSE, lse, (long long)bh * g.N, q0, g.N);
     load_stats(sDi, di, (long long)bh * g.N, q0, g.N);
     __syncthreads();
@@ -536,8 +530,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int jj = 0; jj < DC; ++jj) {
         const int d = tc + 16 * jj;
         if (d < D) {
-          dk[out_base + n * row_pitch + d] = from_f<T>(acc_k[i][jj] * scale);
-          dv[out_base + n * row_pitch + d] = from_f<T>(acc_v[i][jj]);
+          dk[out_base + n * row_pitch + d] = acc_k[i][jj] * scale;
+          dv[out_base + n * row_pitch + d] = acc_v[i][jj];
         }
       }
     }
@@ -574,6 +568,13 @@ struct DkvTile {
   static constexpr int BQ = D > 64 ? 32 : 64;
 };
 
+// The dQ kernel's K/V tile: 64 keys, or 32 where D > 64 (half the shared
+// memory of the two double-buffered D-wide tiles).
+template <int D>
+struct DqTile {
+  static constexpr int BK = D > 64 ? 32 : 64;
+};
+
 template <int D>
 __host__ __device__ constexpr size_t fwd_tc_smem_bytes() {
   // Q, then two stages each of K and V.
@@ -585,6 +586,13 @@ __host__ __device__ constexpr size_t dkv_tc_smem_bytes() {
   // K and V, two stages each of Q and dO, two stages each of LSE and Di.
   return sizeof(bf16) * (2 * kTcRows + 4 * DkvTile<D>::BQ) * Tc<D>::LDS +
          sizeof(float) * 4 * DkvTile<D>::BQ;
+}
+
+template <int D>
+__host__ __device__ constexpr size_t dq_tc_smem_bytes() {
+  // Q and dO, two stages each of K and V, LSE and Di of the Q tile.
+  return sizeof(bf16) * (2 * kTcRows + 4 * DqTile<D>::BK) * Tc<D>::LDS +
+         sizeof(float) * 2 * kTcRows;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -1068,6 +1076,164 @@ __global__ void __launch_bounds__(kTcThreads)
   }
 }
 
+// dQ on tensor cores. Each warp owns 16 of the block's 64 Q rows, as in the
+// forward: Q, dO, LSE and Di of the tile are staged once, K and V stream
+// through shared memory in tiles of DqTile<D>::BK keys that cp.async
+// double-buffers. Per 16-key group: S = Q.K^T and dP = dO.V^T (Q and dO
+// as register A fragments, K and V read by rows as B operands), then P and
+// dS = P (dP - Di) on the accumulator fragments, and dQ += dS.K with dS's C
+// fragments as hi + lo A fragments and K read transposed. P needs no
+// running statistics (LSE is known), so a group's dS goes into dQ at once
+// and only one group's S and dP are live.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ di,
+                 bf16* __restrict__ dq, Geom g, float scale) {
+  using G = Tc<D>;
+  constexpr int LDS = G::LDS;
+  constexpr int BK = DqTile<D>::BK;
+  constexpr int KT = BK * LDS;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_tc);
+  bf16* sdO = sQ + kTcRows * LDS;
+  bf16* sK = sdO + kTcRows * LDS;  // stages 0, 1
+  bf16* sV = sK + 2 * KT;          // stages 0, 1
+  float* sL = reinterpret_cast<float*>(sV + 2 * KT);  // LSE of the Q tile
+  float* sD = sL + kTcRows;                           // Di of the Q tile
+
+  const int bh = blockIdx.x;
+  const int q0 = blockIdx.y * kTcRows;
+  const int b = bh / g.H;
+  const int h = bh - b * g.H;
+  const long long in_base = (long long)b * g.sB + (long long)h * g.sH;
+  const long long row_pitch = (long long)g.H * D;
+  const long long out_base = (long long)b * g.N * row_pitch + (long long)h * D;
+  const long long stat_base = (long long)bh * g.N;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gid = lane >> 2;  // accumulator rows gid and gid + 8
+  const int tig = lane & 3;   // accumulator columns 2*tig, 2*tig + 1
+  const Lanes ln(lane);
+  const bool active = q0 + warp * 16 < g.N;
+  const float c = scale * kLog2e;
+
+  zero_pad<D>(sQ, 2 * kTcRows + 4 * BK);
+  stage_rows<D, kTcRows>(sQ, q, in_base, g.sN, q0, g.N);
+  stage_rows<D, kTcRows>(sdO, dout, out_base, row_pitch, q0, g.N);
+  stage_stats<kTcRows>(sL, lse, stat_base, q0, g.N);
+  stage_stats<kTcRows>(sD, di, stat_base, q0, g.N);
+  stage_rows<D, BK>(sK, k, in_base, g.sN, 0, g.N);
+  stage_rows<D, BK>(sV, v, in_base, g.sN, 0, g.N);
+  cp_async_commit();
+
+  uint32_t qf[G::KC][4], of[G::KC][4];
+  float lse_r[2], di_r[2];  // rows gid and gid + 8; LSE scaled by log2e
+  float acc[G::NT][4];
+#pragma unroll
+  for (int j = 0; j < G::NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  const int nk = (g.N + BK - 1) / BK;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < nk) {
+      stage_rows<D, BK>(sK + (st ^ 1) * KT, k, in_base, g.sN, (kt + 1) * BK,
+                        g.N);
+      stage_rows<D, BK>(sV + (st ^ 1) * KT, v, in_base, g.sN, (kt + 1) * BK,
+                        g.N);
+    }
+    cp_async_commit();
+    cp_async_wait_1();  // the Q tile and K/V tile kt have landed
+    __syncthreads();
+
+    if (active) {
+      if (kt == 0) {
+#pragma unroll
+        for (int kk = 0; kk < G::KC; ++kk) {
+          const int off = (warp * 16 + ln.a_row) * LDS + kk * 16 + ln.a_col;
+          ldsm_x4(qf[kk], smem_u32(sQ + off));
+          ldsm_x4(of[kk], smem_u32(sdO + off));
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          lse_r[r] = sL[warp * 16 + gid + 8 * r] * kLog2e;
+          di_r[r] = sD[warp * 16 + gid + 8 * r];
+        }
+      }
+      const bf16* cK = sK + st * KT;
+      const bf16* cV = sV + st * KT;
+      const int kvalid = g.N - kt * BK;  // < BK on the last tile only
+
+#pragma unroll
+      for (int jj = 0; jj < BK / 16; ++jj) {
+        if (jj * 16 < kvalid) {
+          // S = Q.K^T and dP = dO.V^T for keys jj*16 .. jj*16 + 15.
+          float s[2][4], dp[2][4];
+#pragma unroll
+          for (int t = 0; t < 2; ++t)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
+#pragma unroll
+          for (int kk = 0; kk < G::KC; ++kk) {
+            uint32_t bk[4], bv[4];
+            const int off = (jj * 16 + ln.b_row) * LDS + kk * 16 + ln.b_col;
+            ldsm_x4(bk, smem_u32(cK + off));
+            ldsm_x4(bv, smem_u32(cV + off));
+            mma_bf16(s[0], qf[kk], bk[0], bk[1]);
+            mma_bf16(s[1], qf[kk], bk[2], bk[3]);
+            mma_bf16(dp[0], of[kk], bv[0], bv[1]);
+            mma_bf16(dp[1], of[kk], bv[2], bv[3]);
+          }
+          // P = exp(S * scale - LSE), 0 past N; dS = P (dP - Di).
+#pragma unroll
+          for (int t = 0; t < 2; ++t)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = jj * 16 + t * 8 + 2 * tig + (e & 1);
+              const float p =
+                  col < kvalid ? ex2(fmaf(s[t][e], c, -lse_r[e >> 1])) : 0.f;
+              dp[t][e] = p * (dp[t][e] - di_r[e >> 1]);
+            }
+          // dQ += dS.K: dS's C fragments as hi + lo A fragments, K read
+          // transposed (its rows are the summed axis).
+          uint32_t dh[4], dl[4];
+          c_to_a(dh, dl, dp[0], dp[1]);
+#pragma unroll
+          for (int dn = 0; dn < G::NT / 2; ++dn) {
+            uint32_t bk[4];
+            ldsm_x4_t(bk, smem_u32(cK + (jj * 16 + ln.t_row) * LDS + dn * 16 +
+                                   ln.t_col));
+            mma_bf16(acc[2 * dn], dh, bk[0], bk[1]);
+            mma_bf16(acc[2 * dn + 1], dh, bk[2], bk[3]);
+            mma_bf16(acc[2 * dn], dl, bk[0], bk[1]);
+            mma_bf16(acc[2 * dn + 1], dl, bk[2], bk[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with stage st before its refill
+  }
+
+  if (!active) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int n = q0 + warp * 16 + gid + 8 * r;
+    if (n < g.N) {
+      bf16* row = dq + out_base + (long long)n * row_pitch;
+#pragma unroll
+      for (int j = 0; j < G::NT; ++j) {
+        const int d = j * 8 + 2 * tig;
+        if (d < D)
+          *reinterpret_cast<uint32_t*>(row + d) =
+              pack_bf16(acc[j][2 * r] * scale, acc[j][2 * r + 1] * scale);
+      }
+    }
+  }
+}
+
 // --------------------------------------------------------------- launches
 
 // D^-0.5 rounded once to fp32, as the JAX side's Python-float scale is.
@@ -1095,11 +1261,11 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
   } else {
     const dim3 grid(g.B * g.H, (g.N + kBQ - 1) / kBQ);
     const size_t smem = sizeof(float) * fwd_smem_floats<D>();
-    cudaError_t err = set_smem(fwd_kernel<T, D>, smem);
+    cudaError_t err = set_smem(fwd_kernel<D>, smem);
     if (err != cudaSuccess) return err;
-    fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o),
+    fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o),
         static_cast<float*>(lse), g, head_scale(D));
   }
   return cudaGetLastError();
@@ -1109,15 +1275,27 @@ template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* di,
                       void* dq, Geom g, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * dq_smem_floats<D>();
-  cudaError_t err = set_smem(dq_kernel<T, D>, smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid(g.B * g.H, (g.N + kBQ - 1) / kBQ);
-  dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(di),
-      static_cast<T*>(dq), g, head_scale(D));
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    static_assert(kTcRows == kBQ, "one grid for both designs");
+    const size_t smem = dq_tc_smem_bytes<D>();
+    cudaError_t err = set_smem(dq_tc_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    dq_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(di),
+        static_cast<bf16*>(dq), g, head_scale(D));
+  } else {
+    const size_t smem = sizeof(float) * dq_smem_floats<D>();
+    cudaError_t err = set_smem(dq_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    dq_kernel<D><<<grid, kThreads, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(di),
+        static_cast<float*>(dq), g, head_scale(D));
+  }
   return cudaGetLastError();
 }
 
@@ -1138,13 +1316,13 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
         static_cast<bf16*>(dk), static_cast<bf16*>(dv), g, head_scale(D));
   } else {
     const size_t smem = sizeof(float) * dkv_smem_floats<D>();
-    cudaError_t err = set_smem(dkv_kernel<T, D>, smem);
+    cudaError_t err = set_smem(dkv_kernel<D>, smem);
     if (err != cudaSuccess) return err;
-    dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout),
+    dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(di),
-        static_cast<T*>(dk), static_cast<T*>(dv), g, head_scale(D));
+        static_cast<float*>(dk), static_cast<float*>(dv), g, head_scale(D));
   }
   return cudaGetLastError();
 }

@@ -34,7 +34,8 @@
 //   dW2, db1, dgamma, dls and dlb into its own fp32 slot of a workspace (one
 //   owner per slot element, so the adds need no atomics; the slot's old
 //   values are loaded kBatch at a time so their latency overlaps).
-//   fused_mlp_reduce sums the S slots in slot order. A rerun is bitwise
+//   fused_mlp_reduce sums the S slots in slot order (16-byte loads, 16
+//   slots in flight per thread; see its section). A rerun is bitwise
 //   identical.
 // * ragged R is masked in place: rows past R load as zero (so they add
 //   nothing to any gradient) and are never written.
@@ -57,6 +58,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -531,15 +533,107 @@ __global__ void __launch_bounds__(kThreads)
 
 // ----------------------------------------------------------------- reduce
 
-__global__ void __launch_bounds__(kThreads)
-    mlp_reduce_kernel(const float* __restrict__ ws, float* __restrict__ out,
-                      int S, long long n) {
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += (long long)gridDim.x * kThreads) {
-    float s = 0.f;
-    for (int k = 0; k < S; ++k) s += ws[(long long)k * n + i];
-    out[i] = s;
+// out[i] = ws[0][i] + ws[1][i] + ... + ws[S-1][i], added in slot order (the
+// order of reduce_plain, so the sum is bitwise equal to it and a rerun is
+// bitwise identical). The kernel reads the (S, n) workspace once, so its
+// bound is that read at HBM rate. Each thread owns one V-wide column group
+// (float4 where n % 4 == 0 and both pointers are 16-byte aligned, as every
+// ConvNeXt width gives; else float) and keeps the next 2 * kReduceDepth
+// slots in flight in a ring of registers: each register is reloaded with
+// the slot 2 * kReduceDepth ahead as soon as it has been added, so the
+// loads stay outstanding while the adds go on in slot order, with no split
+// of the slot axis (splitting it would reorder the adds). Loads bypass L1 and ask L2 for 256-byte
+// fetches: every byte is read once. The grid is as many blocks as are
+// resident on all SMs at once (the occupancy query), fewer when the columns
+// run out; each block then strides over column chunks. Block size (64,
+// against 128 and 256), depth (8, against 4 and 16) and load kind (against
+// ld.global.cs and ld.global.nc) were chosen by timing the variants on an
+// H100 at the four ConvNeXt-T widths.
+constexpr int kReduceThreads = 64;
+constexpr int kReduceDepth = 8;
+
+__device__ __forceinline__ float ld_stream(const float* p) {
+  float v;
+  asm("ld.global.nc.L1::no_allocate.L2::256B.f32 %0, [%1];"
+      : "=f"(v)
+      : "l"(p));
+  return v;
+}
+__device__ __forceinline__ float4 ld_stream(const float4* p) {
+  float4 v;
+  asm("ld.global.nc.L1::no_allocate.L2::256B.v4.f32 {%0, %1, %2, %3}, [%4];"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ void add_to(float& a, float b) { a += b; }
+__device__ __forceinline__ void add_to(float4& a, float4 b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+// Adds slots [k0, k0 + kReduceDepth) of the column group to acc in order,
+// those below S, from buf, and refills each register as soon as it has
+// been added with the slot kAhead further on (none where the group lies
+// past the columns: !ok).
+template <int kAhead, typename V>
+__device__ __forceinline__ void add_and_refill(V& acc, V (&buf)[kReduceDepth],
+                                               const V* p, long long pitch,
+                                               int k0, int S, bool ok) {
+#pragma unroll
+  for (int j = 0; j < kReduceDepth; ++j) {
+    if (k0 + j < S) add_to(acc, buf[j]);
+    const int k = k0 + kAhead + j;
+    if (ok && k < S) buf[j] = ld_stream(p + (long long)k * pitch);
   }
+}
+
+template <typename V>
+__global__ void __launch_bounds__(kReduceThreads)
+    mlp_reduce_kernel(const V* __restrict__ ws, V* __restrict__ out, int S,
+                      long long units) {
+  constexpr int kRing = 2 * kReduceDepth;  // slots in flight per thread
+  const long long chunks = (units + kReduceThreads - 1) / kReduceThreads;
+  for (long long c = blockIdx.x; c < chunks; c += gridDim.x) {
+    const long long i = c * kReduceThreads + threadIdx.x;
+    const bool ok = i < units;  // the last chunk may run past the columns
+    const V* p = ws + i;
+    V acc, a[kReduceDepth], b[kReduceDepth];
+    if (ok) acc = ld_stream(p);
+#pragma unroll
+    for (int j = 0; j < kReduceDepth; ++j) {
+      if (ok && 1 + j < S) a[j] = ld_stream(p + (long long)(1 + j) * units);
+      const int k = 1 + kReduceDepth + j;
+      if (ok && k < S) b[j] = ld_stream(p + (long long)k * units);
+    }
+    for (int k0 = 1; k0 < S; k0 += kRing) {
+      add_and_refill<kRing>(acc, a, p, units, k0, S, ok);
+      add_and_refill<kRing>(acc, b, p, units, k0 + kReduceDepth, S, ok);
+    }
+    if (ok) out[i] = acc;
+  }
+}
+
+template <typename V>
+cudaError_t launch_reduce(const void* ws, void* out, int S, long long units,
+                          cudaStream_t s) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, mlp_reduce_kernel<V>, kReduceThreads, 0);
+  if (e != cudaSuccess) return e;
+  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const long long chunks = (units + kReduceThreads - 1) / kReduceThreads;
+  const int grid = (int)(chunks < resident ? chunks : resident);
+  mlp_reduce_kernel<V><<<grid, kReduceThreads, 0, s>>>(
+      static_cast<const V*>(ws), static_cast<V*>(out), S, units);
+  return cudaGetLastError();
 }
 
 // --------------------------------------------------------------- launchers
@@ -673,11 +767,11 @@ int fused_mlp_bwd(const void* h, const void* ls, const void* lb,
 int fused_mlp_reduce(const void* ws, void* out, int splits, long long n,
                      void* stream) {
   if (splits < 1 || n < 1) return (int)cudaErrorInvalidValue;
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  const int grid = (int)(blocks < 4096 ? blocks : 4096);
-  mlp_reduce_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(ws), static_cast<float*>(out), splits, n);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(ws) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  return vec ? (int)launch_reduce<float4>(ws, out, splits, n / 4, s)
+             : (int)launch_reduce<float>(ws, out, splits, n, s);
 }
 
 // Dynamic shared memory per block, in bytes, of the larger of the forward

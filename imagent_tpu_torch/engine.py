@@ -7,7 +7,9 @@ through the synthetic loader, train and eval steps from ``train.py``
 (which put the model in train or eval mode themselves, so BatchNorm
 normalises by batch statistics in training and by its running ones in
 ``evaluate``), best/last checkpoints (BatchNorm's running statistics
-included: a rollback or ``--resume`` restores them), TensorBoard scalars
+included: a rollback or ``--resume`` restores them; BEST only when top-1
+strictly improves on the best so far, which starts at 0, as in the JAX
+engine, so a run whose top-1 stays 0 writes none), TensorBoard scalars
 on the master. Host-sync discipline
 follows the JAX engine: steps are dispatched asynchronously and the
 per-step metric vectors are read ``_GUARD_LAG`` steps behind the dispatch
@@ -18,7 +20,8 @@ consecutive skips roll the state back to the last checkpoint.
 
 Not ported in this slice: preemption signals, watchdog, deadman,
 elastic pods, telemetry, status files, compile cache, torch
-import/export.
+import/export. The start-up line of ``config.skipped_line`` names the
+ones the JAX package runs by default.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import torch
 
 from imagent_tpu_torch import checkpoint as ckpt_lib
 from imagent_tpu_torch import cluster
-from imagent_tpu_torch.config import Config, check_ported
+from imagent_tpu_torch.config import Config, check_ported, skipped_line
 from imagent_tpu_torch.data import make_loaders
 from imagent_tpu_torch.data.prefetch import Prefetcher, PrefetchStats
 from imagent_tpu_torch.models import create_model
@@ -209,6 +212,7 @@ def run(cfg: Config) -> dict:
     global_batch = cfg.batch_size * accum
     print(f"device {device} global_batch {global_batch}"
           + (f" (grad_accum {accum})" if accum > 1 else ""), flush=True)
+    print(skipped_line(), flush=True)
 
     train_loader, val_loader = make_loaders(cfg, 0, 1, global_batch)
     try:
@@ -323,10 +327,7 @@ def _run(cfg, device, is_master, global_batch, train_loader,
             if did_eval:
                 val_m, val_t = evaluate(cfg, device, eval_step, state,
                                         val_loader, epoch)
-                # The first evaluated epoch is the best so far even at
-                # 0% top-1 (the JAX engine needs a strict improvement
-                # over 0), so a --save-model run always leaves a BEST.
-                if val_m["top1"] > best_top1 or best_epoch < 0:
+                if val_m["top1"] > best_top1:
                     best_top1, best_top5, best_epoch = (
                         val_m["top1"], val_m["top5"], epoch)
                     if cfg.save_model:

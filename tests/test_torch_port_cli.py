@@ -186,3 +186,50 @@ def test_default_resnet18_cpu_run_checkpoints_bn_buffers_and_resumes(
     assert main(args + ["--epochs", "3", "--resume"]) == 0
     out = capsys.readouterr().out
     assert "resumed from epoch 2" in out and set(_epochs(out)) == {3}
+
+
+def test_best_is_written_only_on_strict_improvement(tmp_path, capsys,
+                                                    monkeypatch):
+    """BEST as the JAX engine decides it: a save only when top-1 strictly
+    improves on the best so far, which starts at 0. Every eval here
+    reports top-1 = top-5 = 0 by construction (the real eval runs, its
+    accuracies are then zeroed), so the run writes LAST and no BEST, and
+    its summary is what the JAX package's ``final_summary`` prints for
+    the best it never moved from: (epoch -1, 0.0, 0.0)."""
+    from imagent_tpu.utils.logging import TrainLogger as JaxLogger
+    from imagent_tpu_torch import engine
+
+    real_evaluate = engine.evaluate
+
+    def zero_accuracy(*args, **kwargs):
+        metrics, seconds = real_evaluate(*args, **kwargs)
+        return {**metrics, "top1": 0.0, "top5": 0.0}, seconds
+
+    monkeypatch.setattr(engine, "evaluate", zero_accuracy)
+    assert main(_cpu_args(tmp_path, "--epochs", "2", "--save-model")) == 0
+    out = capsys.readouterr().out
+    assert (tmp_path / "ckpt" / "last.pt").exists()
+    assert not (tmp_path / "ckpt" / "best.pt").exists()
+    assert not (tmp_path / "ckpt" / "best_meta.json").exists()
+
+    JaxLogger(str(tmp_path / "jax_tb"), True,
+              tensorboard=False).final_summary(-1, 0.0, 0.0, 0.0)
+    want = capsys.readouterr().out.splitlines()[:2]
+    assert want == ["Best top-1: 0.000 (epoch 0)", "Best top-5: 0.000"]
+    assert re.findall(r"^Best top-[15]: .*$", out, re.M) == want
+
+
+def test_startup_line_names_default_on_subsystems_not_run(tmp_path, capsys):
+    """A default run names, once, the subsystems the JAX package runs by
+    default (True in its ``Config``) that the port does not: derived
+    from ``Config`` and ``PORTED``, and it refuses nothing."""
+    on = {f.name for f in dataclasses.fields(JaxConfig)
+          if getattr(JaxConfig(), f.name) is True} - PORTED
+    assert on == {"telemetry", "aot_steps", "async_ckpt", "native_io",
+                  "chipacct"}
+    assert main(_cpu_args(tmp_path, "--epochs", "1")) == 0
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("not run by this port")]
+    assert lines == ["not run by this port (on by default in the JAX "
+                     "package): native_io, telemetry, aot_steps, "
+                     "async_ckpt, chipacct"]

@@ -1,13 +1,13 @@
 """The rounding points of the port's tensor-core flash kernels
-(``fwd_tc_kernel`` and ``dkv_tc_kernel`` in
+(``fwd_tc_kernel``, ``dq_tc_kernel`` and ``dkv_tc_kernel`` in
 imagent_tpu_torch/csrc/flash_attention.cu), emulated in plain torch on
 the CPU and held to the JAX package's interpret-mode Pallas kernel.
 
-The TPU kernel multiplies P (in P.V and P^T.dO) and dS (in dS^T.Q) as
-fp32 operands. The bf16 tensor-core kernels feed ``mma`` bf16 operands
-only, so they split each of P and dS into hi = bf16(x) and lo =
-bf16(x - hi) and issue one product for each: about 16 mantissa bits.
-The emulation below repeats that (the forward tile by tile, with the
+The TPU kernel multiplies P (in P.V and P^T.dO) and dS (in dS.K and
+dS^T.Q) as fp32 operands. The bf16 tensor-core kernels feed ``mma``
+bf16 operands only, so they split each of P and dS into hi = bf16(x)
+and lo = bf16(x - hi) and issue one product for each: about 16 mantissa
+bits. The emulation below repeats that (the forward tile by tile, with the
 kernel's 64-key online softmax), rounds the outputs to bf16 as the
 kernels do, and must sit within the card bound that chip_smoke.py
 holds the kernels to (``1e-3 + |ref|/64``) at the ViT-B/16 sequence
@@ -67,6 +67,15 @@ def emulate_dkv(q, k, v, do, lse, di, mode):
     dv = torch.einsum("bhqk,bqhd->bkhd", _round(p, mode), do.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", _round(ds, mode), q.float())
     return dk * q.shape[-1] ** -0.5, dv
+
+
+def emulate_dq(q, k, v, do, lse, di, mode):
+    """dQ in fp32 as dq_tc_kernel forms it: S and dP from exact bf16
+    products with fp32 accumulation, P and dS on them in fp32, dS rounded
+    by ``mode`` before dQ = scale * dS.K."""
+    _, ds = fa._p_and_ds(q, k, v, do, lse, di)
+    dq = torch.einsum("bhqk,bkhd->bqhd", _round(ds, mode), k.float())
+    return dq * q.shape[-1] ** -0.5
 
 
 def _inputs(seed, b=1, h=2):
@@ -135,3 +144,22 @@ def test_emulated_forward_tiles_match_plain_softmax():
     want, _ = fa.fwd_plain(q, k, v)
     torch.testing.assert_close(emulate_fwd(q, k, v, None), want,
                                atol=2e-5, rtol=2e-5)
+
+
+def test_dq_split_rounding_fits_card_bound_against_jax_kernel():
+    """dQ with dS split into bf16 hi + lo, rounded to bf16 once at the
+    end, against the interpret-mode Pallas ``_dq_kernel`` (the gradient
+    of the JAX flash attention with respect to q) at the card bound."""
+    q, k, v, do = _inputs(14)
+    jq, jk, jv, jdo = map(_to_jax, (q, k, v, do))
+
+    def loss(q_):  # the cotangent of O is dO
+        o = jax_flash(q_, jk, jv, interpret=True)
+        return jnp.sum(o.astype(jnp.float32) * jdo.astype(jnp.float32))
+
+    want = _to_torch(jax.grad(loss)(jq))
+    o = emulate_fwd(q, k, v, "split").bfloat16()
+    _, lse = fa.fwd_plain(q, k, v)
+    got = emulate_dq(q, k, v, do, lse, fa.delta(do, o), "split").bfloat16()
+    torch.testing.assert_close(got.float(), want, atol=CARD_ATOL,
+                               rtol=CARD_RTOL, msg="dQ")
