@@ -12,9 +12,11 @@ Phases, in order (any failure raises and exits non-zero):
 1. the card: name and power limit from ``nvidia-smi``;
 2. the build: every CUDA kernel of the main paths, from
    ``imagent_tpu_torch/csrc`` (nvcc, one process per source, all started
-   together); each flash kernel's registers and spill bytes from the
-   ``-Xptxas -v`` log (the three D=64 tensor-core kernels must be in it
-   and must not spill);
+   together); each flash and fused-MLP kernel's registers and spill bytes
+   from the ``-Xptxas -v`` log (the three D=64 flash tensor-core kernels,
+   the bf16 fused-MLP forward and backward row kernels at the four
+   ConvNeXt-T widths and the weight-gradient kernel must be in it and
+   must not spill);
 3. the flash kernels: ``fwd``, ``dq`` and ``dkv`` against their plain
    PyTorch versions at ViT-B/16 shapes (N=197, H=12, D=64, the smoke's
    batch) in bf16 and fp32, and at small ragged shapes for every
@@ -25,12 +27,17 @@ Phases, in order (any failure raises and exits non-zero):
    wrapper's copy (misaligned), bitwise equal to contiguous inputs;
    timings (bf16, and the fp32 instantiations) beside SDPA as a
    yardstick, with each kernel's share of its bound;
-4. the fused-MLP kernels: ``fwd``, ``bwd`` and ``reduce`` against their
-   plain versions at each ConvNeXt-T width (C = 96, 192, 384, 768) at
-   its B=64, 224 px row count and at a ragged row count, in fp32 and
+4. the fused-MLP kernels: their shared-memory and row-tile formulas
+   against the plan's; ``fwd``, ``bwd`` (bf16: the row pass and the
+   weight-gradient pass) and ``reduce`` against their plain versions at
+   each ConvNeXt-T width (C = 96, 192, 384, 768) at its B=64, 224 px row
+   count and at a ragged row count, and at C=16 and C=200, in fp32 and
    bf16; two backward runs must be bitwise identical and the reduce
    bitwise equal to ``reduce_plain``; timings at the B=64 shapes in bf16
-   (the reduce beside ``torch.sum(ws, 0)``);
+   (the reduce beside ``torch.sum(ws, 0)``, the forward and backward
+   beside the unfused schedule of ``--fused-mlp off``: LayerNorm, cuBLAS
+   addmm, GELU, addmm, layer scale and residual, and its autograd
+   backward);
 5. the fused-block kernel: its shared-memory formula against the plan
    rule's; the kernel against ``reference_bottleneck`` at the four
    ResNet-50 identity-block geometries at B=64 (56x56 C=256 F=64, 28x28
@@ -52,7 +59,9 @@ Phases, in order (any failure raises and exits non-zero):
    and one eval batch per epoch, 2 epochs, --save-model). The
    plan line must fuse all 18 blocks, and the fused counters, zeroed
    just before, must read exactly 18 forward launches per train and
-   eval step and 18 backward and reduce launches per train step;
+   eval step and 18 backward, weight-gradient and reduce launches per
+   train step; then the same with ``--fused-mlp off`` (no fused launch),
+   so that the two compare within one run;
 9. main path 3, the system's default command: the CLI with no
    ``--arch``, so ResNet-18 at 448 px with SGD (lr 0.1, momentum 0.9, wd
    1e-4), bf16, global batch 128 (the repo's primary cell), 3 train steps
@@ -73,8 +82,9 @@ Phases, in order (any failure raises and exits non-zero):
     block's own fp32 output (``_MODEL_TOL``) and to its float64 output;
     then the same inputs and folded weights in bf16 against
     ``reference_bottleneck`` at 3e-2;
-12. a profile of each main path's train step (``torch.profiler``): host
-    step time, device time per kernel group, the device's idle share;
+12. a profile of each main path's train step (``torch.profiler``), and
+    of ConvNeXt-T with ``--fused-mlp off``: host step time, device time
+    per kernel group, the device's idle share;
 13. the ``kernels`` JSON line, the card line, then the device JSON line
     last.
 
@@ -134,6 +144,8 @@ _SOURCE = "imagent_tpu_torch/csrc/flash_attention.cu"
 _FUSED_KERNELS = (
     ("fused_mlp.fwd", "fwd", "imagent_tpu/ops/fused_mlp.py:113"),
     ("fused_mlp.bwd", "bwd", "imagent_tpu/ops/fused_mlp.py:122"),
+    # the dW1 / dW2 products of the same TPU body, as a second pass
+    ("fused_mlp.wgrad", "wgrad", "imagent_tpu/ops/fused_mlp.py:122"),
     # the revisited-output accumulation of the TPU backward
     ("fused_mlp.reduce", "reduce", "imagent_tpu/ops/fused_mlp.py:163"),
 )
@@ -167,6 +179,14 @@ _BATCH = 64  # global batch of the kernel and train phases
 # ConvNeXt-T (depths, widths); stage i runs at 56 / 2^i px at 224 px.
 _CONVNEXT_T = ((3, 3, 9, 3), (96, 192, 384, 768))
 _RAGGED_ROWS = 333  # a row count that is no multiple of any row tile
+# Widths off the ConvNeXt-T ladder: C=16 (K zero-padded to the mma depth,
+# one 64-wide weight-gradient tile) and C=200 (a multiple of 8, not of
+# 16 or 32), at small ragged row counts.
+_ODD_WIDTHS = ((16, 50), (200, 77))
+# The bf16 fused-MLP kernels the spill gate holds: the row kernels at the
+# four ConvNeXt-T widths (NJ = C / 32) and the weight-gradient kernel.
+_FUSED_TC = tuple(f"mlp_{k}_tc_kernel<{c // 32}>" for c in (96, 192, 384, 768)
+                  for k in ("fwd", "bwd")) + ("mlp_wgrad_kernel",)
 
 
 def _convnext_rows(stage: int, batch: int = _BATCH) -> int:
@@ -337,9 +357,14 @@ def _compare_fused_qkv(fa, b, n, h, d, dtype, seed, offset) -> dict:
 
 
 def _kernel_label(mangled: str) -> str:
-    """``fwd_tc_kernel<bf16,64>`` from a mangled entry name (the name as
-    given when it does not parse): the tensor-core kernels are bf16, the
-    others fp32."""
+    """``fwd_tc_kernel<bf16,64>`` from a mangled flash entry name (the
+    tensor-core kernels are bf16, the others fp32), ``mlp_bwd_tc_kernel<3>``
+    from a fused-MLP one (NJ), the name as given when neither parses."""
+    m = re.search(r"(mlp_(?:fwd|bwd)_tc_kernel)ILi(\d+)E", mangled)
+    if m:
+        return f"{m.group(1)}<{m.group(2)}>"
+    if "mlp_wgrad_kernel" in mangled:
+        return "mlp_wgrad_kernel"
     m = re.search(r"((?:fwd|dq|dkv)(?:_tc)?_kernel)ILi(\d+)E", mangled)
     if not m:
         return mangled
@@ -440,7 +465,11 @@ def _ab_timings(fa, fm, peaks, card) -> None:
                                  "torch_sum_ms": w["reduce"]["library_ms"],
                                  "bound_ms": w["reduce"]["bound_ms"]}
                              for c, w in per_width.items()},
+        "fused_per_width_ms": {c: {k: t["ms"] for k, t in w.items()}
+                               for c, w in per_width.items()},
         "fused_step_ms": {k: t["ms"] for k, t in steps.items()},
+        "unfused_schedule_step_ms": {k: steps[k]["unfused_schedule_ms"]
+                                     for k in ("fwd", "bwd")},
         "reduce_step": steps["reduce"]}), flush=True)
 
 
@@ -515,9 +544,9 @@ def _fused_tol(dname) -> dict:
     """Each entry of ``_fused_compare``'s errors beside its tolerance."""
     atol, rtol = _FUSED_TOL[dname]
     elementwise = f"|err| <= {atol} + {rtol} * |plain|"
-    return {"fwd": elementwise, "bwd": elementwise,
-            "bwd_grads": f"max |err| / max |plain| <= {_GRAD_TOL[dname]}",
-            "reduce": "bitwise equal to reduce_plain"}
+    grads = f"max |err| / max |plain| <= {_GRAD_TOL[dname]}"
+    return {"fwd": elementwise, "bwd": elementwise, "bwd_grads": grads,
+            "wgrad": grads, "reduce": "bitwise equal to reduce_plain"}
 
 
 def _bound(nbytes, flops, peak_flops, peaks) -> dict:
@@ -527,18 +556,41 @@ def _bound(nbytes, flops, peak_flops, peaks) -> dict:
             "flops": flops, "t_bytes_ms": t_bytes, "t_ops_ms": t_ops}
 
 
+def _unfused_mlp(resid, h, ls, lb, w1, b1, w2, b2, gamma):
+    """The ``--fused-mlp off`` block tail of ``models/convnext.py`` in
+    h's dtype: LayerNorm with fp32 statistics, cuBLAS addmm, GELU, addmm,
+    layer scale and the residual (the yardstick of the fused kernels;
+    the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    c = h.shape[-1]
+    y = F.layer_norm(h.float(), (c,), ls.float(), lb.float(),
+                     1e-6).to(h.dtype)
+    y = F.gelu(torch.addmm(b1, y, w1))
+    return resid + torch.addmm(b2, y, w2) * gamma
+
+
 def _fused_timings(fm, peaks, card) -> dict:
     """Each fused kernel at each ConvNeXt-T width at its B=64 shape in
     bf16: kernel, plain and (reduce only) library times and the bound,
     the larger of bytes (inputs read once, outputs written once) over
-    HBM bandwidth and flops over the peak for their type. The backward's
-    bound is that of the function, dh and the gradients from h, dout and
-    the weights: its partial-sum workspace exists only because of this
-    design, so its traffic is reported beside the bound
-    (``workspace_bytes``, ``workspace_write_ms``), not in it. No single
-    PyTorch call computes the fused block or its backward, so their
-    library_ms is null; the reduce's is ``torch.sum`` over the slots."""
+    HBM bandwidth and flops over the peak for their type. The backward
+    (``bwd``: the whole backward before the reduce, both passes in bf16)
+    has the bound of the function, dh and the gradients from h, dout and
+    the weights: the partial-sum workspace and the bf16 design's
+    intermediates exist only because of the design, so their bytes are
+    reported beside the bound (``workspace_bytes``, ``workspace_write_ms``,
+    ``intermediate_bytes``), not in it, as is the weight-gradient pass
+    alone (``wgrad_ms``). The weight-gradient kernel (``wgrad``) also
+    gets a row of its own, bound by its own work: the intermediates read
+    and the workspace written, 16 R C^2 flops. No single PyTorch call
+    computes the fused block or its backward, so their library_ms is
+    null and the unfused ``--fused-mlp off`` schedule stands beside them
+    (``unfused_schedule_ms``: its forward, and its autograd backward);
+    the reduce's library_ms is ``torch.sum`` over the slots. Works on a
+    package without the weight-gradient pass too (the A/B's parent)."""
     import torch
+    two_pass = hasattr(fm, "wgrad_partials")
     per_width = {}
     for stage, c in enumerate(_CONVNEXT_T[1]):
         rows = _convnext_rows(stage)
@@ -567,6 +619,24 @@ def _fused_timings(fm, peaks, card) -> dict:
                        lambda: fm.reduce_plain(ws),
                        lambda: torch.sum(ws, 0)),
         }
+        if two_pass:
+            _, inter = fm.bwd_rows(*bwd_args)
+            inter_bytes = sum(t.numel() * t.element_size() for t in inter)
+            vec = inter[-1]
+            work["wgrad"] = _bound(inter_bytes + slots * slot * 4,
+                                   16 * rows * c * c, peaks["bf16"], peaks)
+            y1c, doc, gac, dac = (t.float() for t in inter[:4])
+            runs["wgrad"] = (lambda: fm.wgrad_partials(inter),
+                             lambda: (y1c.t() @ dac, gac.t() @ doc,
+                                      vec.sum(0)), None)
+        # The unfused schedule: forward, and its autograd backward.
+        leaves = [t.detach().requires_grad_(True) for t in fwd_args]
+        with torch.no_grad():
+            unfused_fwd = _cuda_ms(lambda: _unfused_mlp(*fwd_args))
+        graph = _unfused_mlp(*leaves)
+        unfused_bwd = _cuda_ms(lambda: torch.autograd.grad(
+            graph, leaves[1:], dout, retain_graph=True))
+        del graph, leaves
         per_width[c] = {}
         for key, (kern, plain, lib) in runs.items():
             t = dict(work[key])
@@ -575,16 +645,26 @@ def _fused_timings(fm, peaks, card) -> dict:
             t["library_ms"] = _cuda_ms(lib) if lib else None
             t["bound_by"] = ("bytes" if t["t_bytes_ms"] >= t["t_ops_ms"]
                              else "operations")
+            if key in ("fwd", "bwd"):
+                t["unfused_schedule_ms"] = (unfused_fwd if key == "fwd"
+                                            else unfused_bwd)
             if key == "bwd":
                 t["workspace_bytes"] = slots * slot * 4
                 t["workspace_write_ms"] = (t["workspace_bytes"]
                                            / peaks["bytes"] * 1e3)
+                if two_pass:
+                    t["intermediate_bytes"] = inter_bytes
             per_width[c][key] = t
+        if two_pass:
+            per_width[c]["bwd"]["wgrad_ms"] = per_width[c]["wgrad"]["ms"]
+            del inter, y1c, doc, gac, dac, vec
+        for key, t in per_width[c].items():
             print(json.dumps({"phase": "fused_kernel", "name":
                               f"fused_mlp.{key}", "card": card,
                               "shape": f"C={c} R={rows} bf16",
                               "splits": slots, **t}), flush=True)
         del ws
+        torch.cuda.empty_cache()
     return per_width
 
 
@@ -592,13 +672,19 @@ def _fused_step_totals(per_width) -> dict:
     """Each fused kernel's numbers summed over the 18 blocks of one
     ConvNeXt-T train step (depth x the width's launch): ms, plain_ms,
     library_ms, bound_ms (the sum of each launch's own bound) and the
-    kind that dominates that bound; for the backward also its
-    workspace's bytes and their time at HBM rate, beside the bound."""
+    kind that dominates that bound; for the forward and backward also
+    the unfused schedule; for the backward its workspace's bytes and
+    their time at HBM rate, the intermediates' bytes and the
+    weight-gradient pass, beside the bound."""
     out = {}
-    for key in ("fwd", "bwd", "reduce"):
-        sums = ("ms", "plain_ms", "bound_ms") + (
-            ("workspace_bytes", "workspace_write_ms") if key == "bwd"
-            else ())
+    extra = {"fwd": ("unfused_schedule_ms",),
+             "bwd": ("unfused_schedule_ms", "workspace_bytes",
+                     "workspace_write_ms", "intermediate_bytes",
+                     "wgrad_ms")}
+    for key in per_width[_CONVNEXT_T[1][0]]:
+        sums = ("ms", "plain_ms", "bound_ms") + tuple(
+            k for k in extra.get(key, ())
+            if k in per_width[_CONVNEXT_T[1][0]][key])
         tot = {"t_bytes": 0.0, "t_ops": 0.0, "library_ms": 0.0,
                **{k: 0.0 for k in sums}}
         for depth, c in zip(*_CONVNEXT_T):
@@ -1054,11 +1140,25 @@ def _train_convnext(fm, batch: int, epochs: int, steps: int) -> dict:
         raise AssertionError(f"plan line does not fuse every block: "
                              f"{res['plan']}")
     want = {"fwd": blocks * (res["steps"] + res["eval_steps"]),
-            "bwd": blocks * res["steps"], "reduce": blocks * res["steps"]}
+            "bwd": blocks * res["steps"], "wgrad": blocks * res["steps"],
+            "reduce": blocks * res["steps"]}
     if res["launches"] != want:
         raise AssertionError(f"fused launches {res['launches']} != "
                              f"{want} ({res['steps']} train and "
                              f"{res['eval_steps']} eval steps)")
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def _train_convnext_off(fm, batch: int, epochs: int, steps: int) -> dict:
+    """The same ConvNeXt-T path with ``--fused-mlp off`` (cuBLAS GEMMs,
+    the yardstick of the fused path in the same run): no fused launch."""
+    res = _train("convnext_tiny (fused-mlp off)",
+                 ["--arch", "convnext_tiny", "--fused-mlp", "off",
+                  *_ADAMW_224], [fm], batch, epochs, steps)
+    if any(res["launches"].values()):
+        raise AssertionError(f"--fused-mlp off launched fused kernels: "
+                             f"{res['launches']}")
     print(json.dumps(res), flush=True)
     return res
 
@@ -1079,6 +1179,9 @@ def _train_resnet(arch, argv, counters, batch: int, epochs: int,
 
 
 _GROUPS = (  # kernel-name fragment -> group of the step breakdown
+    ("mlp_fwd_tc_kernel<", "fused_mlp_fwd"),
+    ("mlp_bwd_tc_kernel<", "fused_mlp_bwd"),
+    ("mlp_wgrad_kernel", "fused_mlp_wgrad"),
     ("mlp_fwd_kernel<", "fused_mlp_fwd"), ("mlp_bwd_kernel<", "fused_mlp_bwd"),
     ("mlp_reduce_kernel", "fused_mlp_reduce"),
     ("bottleneck_kernel<", "fused_block"), ("batch_norm", "batch_norm"),
@@ -1148,7 +1251,8 @@ def _profile(arch: str, overrides: dict, batch: int, steps: int = 3,
                       if frag in name.lower()), "other")
         groups[group] = groups.get(group, 0.0) + ms
     busy = sum(ms for ms, _, _ in kernels)
-    res = {"phase": "profile", "arch": arch, "batch": batch,
+    res = {"phase": "profile", "arch": arch, "overrides": overrides,
+           "batch": batch,
            "image_size": image_size, "optimizer": opt_name, "steps": steps,
            "step_ms": step_ms, "device_ms_per_step": busy,
            "idle_share": 1.0 - busy / step_ms if kernels else None,
@@ -1186,11 +1290,19 @@ def _kernel_rows(card, timing, errs, train, fused, fused_errs, fused_train,
                "library_ms": t["library_ms"],
                "per": "one ConvNeXt-T train step (18 blocks, B=64)",
                "passed": True}
-        if key == "bwd":  # max_abs_err is dh's
+        if key in ("fwd", "bwd"):
+            # No single PyTorch call computes the block: its yardstick is
+            # the unfused --fused-mlp off schedule (cuBLAS bf16 GEMMs).
+            row["unfused_schedule_ms"] = t["unfused_schedule_ms"]
+        if key in ("bwd", "wgrad"):  # max_abs_err is dh's; the pass's
+            # own error is that of the gradients it feeds
             row.update(grads_err=fused_errs["bwd_grads"],
-                       grads_tolerance=tol["bwd_grads"],
-                       workspace_bytes=t["workspace_bytes"],
-                       workspace_write_ms=t["workspace_write_ms"])
+                       grads_tolerance=tol["bwd_grads"])
+        if key == "bwd":
+            row.update(workspace_bytes=t["workspace_bytes"],
+                       workspace_write_ms=t["workspace_write_ms"],
+                       intermediate_bytes=t["intermediate_bytes"],
+                       wgrad_ms=t["wgrad_ms"])
         rows.append(row)
     name, replaces = _BLOCK_KERNEL
     sums = {k: sum(t[k] for t in block.values())
@@ -1288,14 +1400,21 @@ def main(argv=None) -> int:
     flash_regs = _ptxas_report(_cuda.BUILD_LOG["flash_attention"]["log"])
     print(json.dumps({"phase": "flash_ptxas", "kernels": flash_regs}),
           flush=True)
-    for name in ("fwd_tc_kernel<bf16,64>", "dq_tc_kernel<bf16,64>",
-                 "dkv_tc_kernel<bf16,64>"):
-        regs = flash_regs.get(name)
-        if regs is None or "spill_stores" not in regs:
-            raise AssertionError(f"{name}: no register/spill report in the "
-                                 f"build log (entries: {sorted(flash_regs)})")
-        if regs["spill_stores"] or regs["spill_loads"]:
-            raise AssertionError(f"{name} spills: {regs}")
+    fused_regs = _ptxas_report(_cuda.BUILD_LOG["fused_mlp"]["log"])
+    print(json.dumps({"phase": "fused_ptxas", "kernels": fused_regs}),
+          flush=True)
+    for regs_of, names in ((flash_regs, ("fwd_tc_kernel<bf16,64>",
+                                         "dq_tc_kernel<bf16,64>",
+                                         "dkv_tc_kernel<bf16,64>")),
+                           (fused_regs, _FUSED_TC)):
+        for name in names:
+            regs = regs_of.get(name)
+            if regs is None or "spill_stores" not in regs:
+                raise AssertionError(f"{name}: no register/spill report in "
+                                     f"the build log (entries: "
+                                     f"{sorted(regs_of)})")
+            if regs["spill_stores"] or regs["spill_loads"]:
+                raise AssertionError(f"{name} spills: {regs}")
 
     n, h, d = _VIT_SHAPE["N"], _VIT_SHAPE["H"], _VIT_SHAPE["D"]
     main_errs = _compare(fa, _BATCH, n, h, d, torch.bfloat16, 1)
@@ -1321,11 +1440,23 @@ def main(argv=None) -> int:
             "bytes": t["bytes"], "flops": t["flops"]}), flush=True)
 
     lib_smem = fm._kernels().fused_mlp_smem_bytes
-    for c in (16, 96, 200, 384, 768):
-        if lib_smem(c) != fm.smem_bytes(c):
-            raise AssertionError(f"smem at C={c}: kernel {lib_smem(c)} != "
-                                 f"plan {fm.smem_bytes(c)}")
+    lib_rows = fm._kernels().fused_mlp_tc_rows
+    for c in (16, 96, 192, 200, 384, 768):
+        for dtype in (torch.float32, torch.bfloat16):
+            got = lib_smem(c, int(dtype == torch.bfloat16))
+            if got != fm.smem_bytes(c, dtype):
+                raise AssertionError(f"smem at C={c} {dtype}: kernel {got} "
+                                     f"!= plan {fm.smem_bytes(c, dtype)}")
+        for backward in (False, True):
+            if lib_rows(c, int(backward)) != fm.tc_rows(c, backward):
+                raise AssertionError(
+                    f"bf16 row tile at C={c} (backward={backward}): kernel "
+                    f"{lib_rows(c, int(backward))} != plan "
+                    f"{fm.tc_rows(c, backward)}")
     fused_errs = {"fwd": 0.0, "bwd": 0.0, "bwd_grads": 0.0, "reduce": 0.0}
+    for c, rows in _ODD_WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            _fused_compare(fm, c, rows, dtype, c + rows)
     for stage, c in enumerate(_CONVNEXT_T[1]):
         for dtype in (torch.bfloat16, torch.float32):
             for rows in (_convnext_rows(stage), _RAGGED_ROWS):
@@ -1333,6 +1464,7 @@ def main(argv=None) -> int:
                 if dtype == torch.bfloat16 and rows != _RAGGED_ROWS:
                     fused_errs = {k: max(v, errs[k])
                                   for k, v in fused_errs.items()}
+    fused_errs["wgrad"] = fused_errs["bwd_grads"]
     fused_per_width = _fused_timings(fm, peaks, card)
     fused = _fused_step_totals(fused_per_width)
     print(json.dumps({"phase": "fused_step_totals", "card": card, **fused}),
@@ -1362,6 +1494,7 @@ def main(argv=None) -> int:
 
     vit = _train_vit(fa, _BATCH, epochs=2, steps=4)
     convnext = _train_convnext(fm, _BATCH, epochs=2, steps=3)
+    convnext_off = _train_convnext_off(fm, _BATCH, epochs=2, steps=3)
     ports = [fa, fm, fb]
     # Main path 3: the default command, no --arch (ResNet-18 at 448 px,
     # SGD lr 0.1 momentum 0.9 wd 1e-4, bf16): only the batch and the data.
@@ -1373,7 +1506,7 @@ def main(argv=None) -> int:
         _BATCH, epochs=2, steps=3, workers=8, keep_last=True)
     block_check = _block_model_check(fb, last50, _BATCH)
     del last50
-    for res in (vit, convnext, resnet18, resnet50):
+    for res in (vit, convnext, convnext_off, resnet18, resnet50):
         print(json.dumps({"phase": "train_summary", "arch": res["arch"],
                           "card": card,
                           "img_per_s": res["img_per_s_last_epoch"],
@@ -1381,6 +1514,7 @@ def main(argv=None) -> int:
               flush=True)
     _profile("vit_b16", {"attn_impl": "flash"}, _BATCH)
     _profile("convnext_tiny", {"fused_mlp": "on"}, _BATCH)
+    _profile("convnext_tiny", {"fused_mlp": "off"}, _BATCH)
     sgd = ("sgd", 0.1, 1e-4)
     _profile("resnet18", {}, 128, image_size=448, opt=sgd)
     _profile("resnet50", {}, _BATCH, opt=sgd)

@@ -90,6 +90,8 @@
 
 #include <type_traits>
 
+#include "mma_sm90.cuh"
+
 namespace {
 
 constexpr int kBQ = 64;       // Q rows per tile
@@ -540,8 +542,6 @@ __global__ void __launch_bounds__(kThreads)
 
 // ------------------------------------------- tensor-core kernels (bf16)
 
-typedef __nv_bfloat16 bf16;
-
 constexpr int kTcRows = 64;      // K/V tile rows; dK/dV's own tile: 4 warps
 constexpr int kTcThreads = 128;  // the dK/dV block: 4 warps of 16 key rows
 constexpr int kFwdWarps = 4;     // the forward block: 4 warps of 16 Q rows
@@ -595,55 +595,10 @@ __host__ __device__ constexpr size_t dq_tc_smem_bytes() {
          sizeof(float) * 2 * kTcRows;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; a source size of 0 reads nothing and
-// writes zeros.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                                           bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most one committed group is still in flight.
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c += a.b on one 16x8 tile: a is 16x16 (row-major), b is 16x8 (col-major).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -675,21 +630,10 @@ __device__ __forceinline__ void c_to_a(uint32_t (&hi)[4], uint32_t (&lo)[4],
   split_bf16(hi[3], lo[3], c1[2], c1[3]);
 }
 
-// Two fp32 values rounded to bf16, `lo` in the low half (the lower column).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Quad reductions: the 4 lanes that hold one accumulator row.
+// Max over the 4 lanes that hold one accumulator row.
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // Rows [row0, row0 + ROWS) of one (b, h) slice into a shared tile of pitch
@@ -732,21 +676,6 @@ __device__ __forceinline__ void zero_pad(bf16* rows_base, int rows) {
           make_uint4(0u, 0u, 0u, 0u);
   }
 }
-
-// Lane offsets of the three ldmatrix.x4 patterns. A operand: a 16 x 16
-// chunk (rows, depth). B by rows: two n8 tiles of 8 rows x 16 depth, the
-// rows being the product's columns (K for S = Q.K^T). B transposed: 16
-// depth rows x two n8 tiles of columns (V for P.V).
-struct Lanes {
-  int a_row, a_col, b_row, b_col, t_row, t_col;
-  __device__ __forceinline__ explicit Lanes(int lane)
-      : a_row(lane & 15),
-        a_col((lane >> 4) * 8),
-        b_row((lane & 7) + (lane >> 4) * 8),
-        b_col(((lane >> 3) & 1) * 8),
-        t_row((lane & 7) + ((lane >> 3) & 1) * 8),
-        t_col((lane >> 4) * 8) {}
-};
 
 template <int D>
 __global__ void __launch_bounds__(kFwdThreads, 1)

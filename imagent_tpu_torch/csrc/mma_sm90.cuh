@@ -1,0 +1,90 @@
+// Tensor-core building blocks shared by the bf16 kernels of this directory
+// (flash_attention.cu, fused_mlp.cu): cp.async staging, ldmatrix operand
+// loads and mma.sync.m16n8k16 bf16 with fp32 accumulation, for sm_90a.
+// Each .cu includes it once; everything here is internal to that
+// translation unit.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; a source size of 0 reads nothing and
+// writes zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most one committed group is still in flight.
+__device__ __forceinline__ void cp_async_wait_1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a.b on one 16x8 tile: a is 16x16 (row-major), b is 16x8 (col-major).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two fp32 values rounded to bf16, `lo` in the low half (the lower column).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Sum over the 4 lanes that hold one accumulator row.
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Lane offsets of the three ldmatrix.x4 patterns. A operand: a 16 x 16
+// chunk (rows, depth). B by rows: two n8 tiles of 8 rows x 16 depth, the
+// rows being the product's columns (K for S = Q.K^T). B transposed: 16
+// depth rows x two n8 tiles of columns (V for P.V). An A operand stored
+// depth-major is read with the by-rows offsets and .trans. The .x2 forms
+// use lanes 0-15 of the same offsets.
+struct Lanes {
+  int a_row, a_col, b_row, b_col, t_row, t_col;
+  __device__ __forceinline__ explicit Lanes(int lane)
+      : a_row(lane & 15),
+        a_col((lane >> 4) * 8),
+        b_row((lane & 7) + (lane >> 4) * 8),
+        b_col(((lane >> 3) & 1) * 8),
+        t_row((lane & 7) + ((lane >> 3) & 1) * 8),
+        t_col((lane >> 4) * 8) {}
+};
+
+}  // namespace

@@ -3,8 +3,8 @@ into plain-C shared libraries and loads them with ``ctypes``.
 
 The first use builds: ``nvcc`` compiles each source for
 ``sm_90a`` into ``build/kernels/`` at the root of the checkout, under a
-name keyed on a hash of the source and the flags, so an edited kernel
-is rebuilt and an unchanged one is reused. No PyTorch headers are
+name keyed on a hash of the source, the shared headers and the flags,
+so an edited kernel is rebuilt and an unchanged one is reused. No PyTorch headers are
 compiled in (a source with a plain C interface builds in seconds), and
 nothing here runs at import time: the CPU tests import every module on
 machines without ``nvcc``.
@@ -45,10 +45,13 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{key}.so"
+    """The library's path, keyed on the source, the shared headers of
+    ``csrc`` (``*.cuh``) and the flags."""
+    data = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        data += header.read_bytes()
+    key = hashlib.sha256(data + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}_{key[:16]}.so"
 
 
 def build(names) -> None:

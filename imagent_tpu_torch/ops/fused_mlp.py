@@ -5,18 +5,26 @@ Port of ``imagent_tpu/ops/fused_mlp.py``. One block's
 LN -> C->4C -> GELU -> 4C->C -> layer-scale -> residual chain runs as one
 kernel, so the 4C activation never reaches device memory; the backward
 recomputes it from the block's inputs (FlashAttention's remat-in-kernel
-discipline). The two Pallas TPU kernels become three CUDA kernels in
-``csrc/fused_mlp.cu`` (see its header for the design and what bounds it
-on an H100):
+discipline). The two Pallas TPU kernels become CUDA kernels in
+``csrc/fused_mlp.cu`` (see its header for the designs and what bounds
+them on an H100):
 
-* ``fwd`` replaces ``_fwd_kernel`` (``_fused_fwd_impl``);
+* ``fwd`` replaces ``_fwd_kernel`` (``_fused_fwd_impl``). bf16 runs on
+  the tensor cores (``mma.sync``, the weight chunks staged as bf16 by
+  ``cp.async``); fp32 keeps the first version's FMA loops.
 * ``bwd`` replaces ``_bwd_kernel`` (``_fused_core_bwd``): ``dh`` for its
-  rows, and fp32 partial sums of the weight and vector gradients, one
-  slot per CUDA block;
-* ``reduce`` sums those slots in a fixed order. The TPU kernel
-  accumulates the same sums in output blocks revisited by a sequential
-  grid; CUDA blocks run in no order, so the reduction is a second pass,
-  and no float atomics are used: a rerun is bitwise identical.
+  rows and fp32 partial sums of the weight and vector gradients, one
+  workspace slot per partial. In fp32 one kernel does all of it, one slot
+  per CUDA block, adding each 16-row tile's share into its slot. In bf16
+  it is two tensor-core kernels: the row pass (``bwd``: dh, the row
+  tiles' db1/dgamma/dls/dlb partials, and the bf16 operands of the weight
+  products, y1, dout * gamma, GELU(a) and da) and the weight-gradient
+  pass (``wgrad``: dW1 = y1^T da and dW2 = GELU(a)^T do over fixed row
+  ranges, each range's tile written once into its slot).
+* ``reduce`` sums the slots in a fixed order. The TPU kernel accumulates
+  the same sums in output blocks revisited by a sequential grid; CUDA
+  blocks run in no order, so the reduction is a second pass, and no
+  float atomics are used: a rerun is bitwise identical.
 
 ``db2 = sum(dout) * gamma`` stays a plain torch op, as it lies outside
 the Pallas kernel in the JAX package.
@@ -28,35 +36,50 @@ that feed a GEMM (``y1``, ``GELU(a)``, ``dout * gamma``, ``da``) are
 rounded to the activation dtype first. Weight and vector gradients come
 out of the kernels in fp32 and are cast to each parameter's dtype.
 
-Where the kernel fits (``unfused_reason``): the TPU rule models VMEM
+Where the kernels fit (``unfused_reason``): the TPU rule models VMEM
 and leaves C=768 unfused; here the rule is the kernels' own shared
-memory per block against the device's opt-in limit (227 KB on an H100).
-W1 and W2 are streamed through shared memory in chunks of the 4C axis,
-so every ConvNeXt-T width (96, 192, 384, 768) fits and all 18 blocks
-fuse; C=1024 and C=1536 (ConvNeXt-B/L's last stage) do not.
+memory per block, in both dtypes, against the device's opt-in limit
+(227 KB on an H100). W1 and W2 are streamed through shared memory in
+chunks of the 4C axis, so every ConvNeXt-T width (96, 192, 384, 768)
+fits and all 18 blocks fuse; C=1024 and C=1536 (ConvNeXt-B/L's last
+stage) do not.
 
 Dispatch: a wrapper runs its plain version only for tensors on the CPU;
 for CUDA tensors it launches its kernel or raises. ``LAUNCHES`` counts
-kernel launches per entry point.
+kernel launches per kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
-LAUNCHES = {"fwd": 0, "bwd": 0, "reduce": 0}
+LAUNCHES = {"fwd": 0, "bwd": 0, "wgrad": 0, "reduce": 0}
 
-# Tile geometry of csrc/fused_mlp.cu (kBMF/kBNF, kBMB/kBNB, kMaxSplit).
+# Tile geometry of csrc/fused_mlp.cu's fp32 kernels (kBMF/kBNF,
+# kBMB/kBNB, kMaxSplit).
 FWD_ROWS, FWD_CHUNK = 32, 32
 BWD_ROWS, BWD_CHUNK = 16, 16
-# Backward blocks, one fp32 partial slot each: as many slots as fit
+# fp32 backward blocks, one fp32 partial slot each: as many slots as fit
 # WORKSPACE_BYTES, within [MIN_SPLITS, MAX_SPLITS] (a function of the
 # shape alone, never of the device, so a rerun sums in the same order).
 WORKSPACE_BYTES = 256 * 2 ** 20
 MIN_SPLITS, MAX_SPLITS = 128, 1024
+# The bf16 tensor-core kernels (TcGeom, kTcChunk, kRangeRows, kWgTile,
+# kWgRows of csrc/fused_mlp.cu): 8 warps a row tile, 4C walked in chunks
+# of TC_CHUNK; the weight-gradient pass on WGRAD_TILE^2 output tiles over
+# row ranges that are multiples of RANGE_ROWS, as few as give about
+# WGRAD_BLOCKS (tile, range) blocks: four per SM of a 132-SM H100, fixed
+# here so that the ranges, and the order of the sums, depend on the
+# shape alone.
+TC_CHUNK = 32
+RANGE_ROWS = 128
+WGRAD_TILE, WGRAD_ROWS = 64, 64
+WGRAD_BLOCKS = 528
+WGRAD_SMEM = 2 * 2 * WGRAD_ROWS * (WGRAD_TILE + 8) * 2
 # Register-tile widths the kernels are instantiated for: a block of
 # width C uses the smallest NJ with 32 * NJ >= C (columns past C are
 # zero-padded in shared memory).
@@ -72,9 +95,12 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _ARGTYPES = {
     "fused_mlp_fwd": [_P] * 10 + [_I, _I, _F, _I, _P],
-    "fused_mlp_bwd": [_P] * 11 + [_I, _I, _F, _I, _I, _P],
+    "fused_mlp_bwd": [_P] * 11 + [_I, _I, _F, _I, _P],
+    "fused_mlp_bwd_tc": [_P] * 15 + [_I, _I, _F, _P],
+    "fused_mlp_wgrad": [_P] * 6 + [_I, _I, _I, _I, _P],
     "fused_mlp_reduce": [_P, _P, _I, ctypes.c_longlong, _P],
-    "fused_mlp_smem_bytes": [_I],
+    "fused_mlp_smem_bytes": [_I, _I],
+    "fused_mlp_tc_rows": [_I, _I],
 }
 _lib = None
 
@@ -105,11 +131,42 @@ def _padded_dim(c: int) -> int:
     return 32 * next((nj for nj in _NJ if nj >= need), need)
 
 
-def smem_bytes(c: int) -> int:
-    """Dynamic shared memory per block of the larger of the forward and
-    backward kernels at width ``c`` (``fwd_smem_floats`` and
-    ``bwd_smem_floats`` of csrc/fused_mlp.cu, fp32 tiles in every
-    dtype)."""
+def _tc_geom(c: int, backward: bool):
+    """``(cp, wn, bm)`` of the bf16 row kernel at width ``c``
+    (``TcGeom``): padded width, warps across the C-wide accumulators
+    (each warp at most 192 columns forward, 96 backward), tile rows."""
+    cp = _padded_dim(c)
+    widest = 96 if backward else 192
+    wn = next((w for w in (1, 2, 4, 8) if cp <= w * widest), 8)
+    return cp, wn, 16 * (8 // wn)
+
+
+def tc_rows(c: int, backward: bool = True) -> int:
+    """Rows per tile of the bf16 forward or backward row kernel (the
+    backward's row tiles are the vector partials' rows)."""
+    return _tc_geom(c, backward)[2]
+
+
+def _tc_smem(c: int, backward: bool) -> int:
+    cp, wn, bm = _tc_geom(c, backward)
+    ldc, bn, ldn = cp + 8, TC_CHUNK, TC_CHUNK + 8
+    wm = 8 // wn
+    p = 2 if backward else 1
+    f32 = (wm * bn + 2 * bm + 2 * wn * bm + 3 * wm * cp) if backward else 0
+
+    def total(stages):
+        return (2 * (p * bm * ldc + stages * (cp * ldn + bn * ldc)
+                     + p * bm * ldn) + 4 * f32)
+    return total(2) if total(2) <= H100_SMEM_OPTIN else total(1)
+
+
+def smem_bytes(c: int, dtype=torch.float32) -> int:
+    """Dynamic shared memory per block of the largest kernel at width
+    ``c`` in ``dtype``: bf16, the tensor-core forward and backward row
+    kernels (``TcGeom::SMEM``) and the weight-gradient pass; fp32,
+    ``fwd_smem_floats`` and ``bwd_smem_floats`` of csrc/fused_mlp.cu."""
+    if dtype == torch.bfloat16:
+        return max(_tc_smem(c, False), _tc_smem(c, True), WGRAD_SMEM)
     cp = _padded_dim(c)
     fwd = FWD_ROWS * (cp + 1) + FWD_CHUNK * cp + FWD_ROWS * FWD_CHUNK
     bwd = ((2 * BWD_ROWS + 2 * BWD_CHUNK) * (cp + 4)
@@ -127,10 +184,13 @@ def _smem_limit(device) -> int:
 
 def kernel_fits(dim: int, device=None) -> bool:
     """The Hopper rule: the kernels take width ``dim`` (a multiple of 8
-    up to ``MAX_DIM``) and their shared memory per block fits the
-    device's opt-in limit (an H100's when ``device`` is not CUDA)."""
+    up to ``MAX_DIM``) and their shared memory per block, in either
+    dtype, fits the device's opt-in limit (an H100's when ``device`` is
+    not CUDA)."""
     return (dim % 8 == 0 and 0 < dim <= MAX_DIM
-            and smem_bytes(dim) <= _smem_limit(device))
+            and max(smem_bytes(dim, torch.float32),
+                    smem_bytes(dim, torch.bfloat16))
+            <= _smem_limit(device))
 
 
 def unfused_reason(mode: str, dim: int, *, dropping: bool = False,
@@ -164,9 +224,10 @@ def fused_block_rows(mode: str, dim: int, *, dropping: bool = False,
     * ``auto``: fuse where the kernel fits and the tensors are on a CUDA
       device.
 
-    An active stochastic-depth mask (``dropping``) never fuses. The
-    shared-memory tiles are fp32 in every dtype, so unlike the TPU rule
-    the decision takes no dtype."""
+    An active stochastic-depth mask (``dropping``) never fuses. A width
+    fuses only where the kernels of both dtypes fit, so unlike the TPU
+    rule the decision takes no dtype; the row tile returned is the fp32
+    forward's (the bf16 one is ``tc_rows(dim, False)``)."""
     if unfused_reason(mode, dim, dropping=dropping, device=device):
         return None
     return FWD_ROWS
@@ -321,12 +382,12 @@ def _check(h, *params):
         raise ValueError("fused MLP needs at least one row")
 
 
-def _kernel_width(c: int, device) -> None:
+def _kernel_width(c: int, dtype, device) -> None:
     if not kernel_fits(c, device):
         raise ValueError(f"C={c} is outside the fused-MLP kernels (a "
                          f"multiple of 8 up to {MAX_DIM} whose "
-                         f"{smem_bytes(c)} bytes of shared memory fit); "
-                         "use --fused-mlp auto/off")
+                         f"{smem_bytes(c, dtype)} bytes of shared memory "
+                         "fit); use --fused-mlp auto/off")
 
 
 def _ptrs(*ts):
@@ -342,6 +403,13 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
 
+def _aligned(t):
+    """``t`` contiguous at a 16-byte-aligned address (the bf16 kernels
+    stage with 16-byte ``cp.async``): a copy where it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def fwd(resid, h, ls, lb, w1, b1, w2, b2, gamma, eps=1e-6):
     """The block output: the forward kernel on CUDA, ``fwd_plain`` on
     the CPU. All inputs share one dtype; ``resid``/``h`` are ``(R, C)``."""
@@ -354,9 +422,9 @@ def fwd(resid, h, ls, lb, w1, b1, w2, b2, gamma, eps=1e-6):
         return fwd_plain(resid, h, *params, eps=eps)
     lib = _kernels()
     r, c = h.shape
-    _kernel_width(c, h.device)
-    resid, h = resid.contiguous(), h.contiguous()
-    params = [t.contiguous() for t in params]
+    _kernel_width(c, h.dtype, h.device)
+    resid, h = _aligned(resid), _aligned(h)
+    params = [_aligned(t) for t in params]
     out = torch.empty_like(h)
     _raise_on(lib.fused_mlp_fwd(*_ptrs(resid, h, *params, out), r, c, eps,
                                 int(h.dtype == torch.bfloat16), _stream(h)),
@@ -371,36 +439,105 @@ def slot_floats(c: int) -> int:
     return 8 * c * c + 7 * c
 
 
-def splits(rows: int, c: int) -> int:
-    """Backward blocks (and partial slots) for ``rows`` rows of width
-    ``c``: 902 at C=96 and 226 at C=192 (256 MiB of slots), 128 at C=384
-    and C=768 (0.60 and 2.42 GB), never more than the row tiles."""
+def wgrad_tiles(c: int) -> int:
+    """Output tiles of the bf16 weight-gradient pass: dW1 (C x 4C) and
+    dW2 (4C x C) in WGRAD_TILE^2 tiles."""
+    return 2 * -(-c // WGRAD_TILE) * -(-4 * c // WGRAD_TILE)
+
+
+def row_ranges(rows: int, c: int) -> tuple:
+    """``(S, L)``: the bf16 weight-gradient pass splits ``rows`` into S
+    ranges of L rows (the last one shorter), L a multiple of RANGE_ROWS,
+    S the fewest that give ``wgrad_tiles(c) * S`` about WGRAD_BLOCKS
+    blocks: 22 ranges at C=96 and 8 at C=192 at ConvNeXt-T's B=64 row
+    counts, 2 at C=384, 1 at C=768."""
+    want = max(1, -(-WGRAD_BLOCKS // wgrad_tiles(c)))
+    want = min(want, -(-rows // RANGE_ROWS))
+    length = -(-rows // (want * RANGE_ROWS)) * RANGE_ROWS
+    return -(-rows // length), length
+
+
+def splits(rows: int, c: int, dtype=torch.float32) -> int:
+    """Backward partial slots for ``rows`` rows of width ``c``. bf16: the
+    row ranges (``row_ranges``). fp32: one per backward block, 902 at
+    C=96 and 226 at C=192 (256 MiB of slots), 128 at C=384 and C=768
+    (0.60 and 2.42 GB), never more than the row tiles."""
+    if dtype == torch.bfloat16:
+        return row_ranges(rows, c)[0]
     fit = WORKSPACE_BYTES // (4 * slot_floats(c))
     return min(max(MIN_SPLITS, min(MAX_SPLITS, fit)), -(-rows // BWD_ROWS))
 
 
-def bwd_partials(h, ls, lb, w1, b1, w2, b2, gamma, dout, eps=1e-6):
-    """``(dh, ws)``: the backward kernel's dh and its ``(S, slot)`` fp32
-    workspace of partial gradient sums (CUDA only)."""
+def _bwd_args(h, ls, lb, w1, b1, w2, b2, gamma, dout):
     params = (ls, lb, w1, b1, w2, b2, gamma)
     _check(h, *params)
     if not _on_cuda(h):
-        raise ValueError("bwd_partials is the CUDA kernel alone; use bwd")
+        raise ValueError("the backward kernels take CUDA tensors; use bwd")
     if dout.shape != h.shape or dout.dtype != h.dtype:
         raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not "
                          f"match h {tuple(h.shape)} {h.dtype}")
+    _kernel_width(h.shape[1], h.dtype, h.device)
+
+
+def bwd_rows(h, ls, lb, w1, b1, w2, b2, gamma, dout, eps=1e-6):
+    """The bf16 row pass of the backward (CUDA only): ``(dh, inter)``,
+    ``inter = (y1c, doc, gac, dac, vec)``: y1 and dout * gamma (R, C) and
+    GELU(a) and da (R, 4C) in bf16, and the fp32 (row tiles, 7C)
+    partials of db1, dgamma, dls and dlb, one row per ``tc_rows(c)``
+    rows."""
+    _bwd_args(h, ls, lb, w1, b1, w2, b2, gamma, dout)
+    if h.dtype != torch.bfloat16:
+        raise ValueError("bwd_rows is the bf16 backward's row pass")
     lib = _kernels()
     r, c = h.shape
-    _kernel_width(c, h.device)
+    h, dout = _aligned(h), _aligned(dout)
+    params = [_aligned(t) for t in (ls, lb, w1, b1, w2, b2, gamma)]
+    dh = torch.empty_like(h)
+    new = functools.partial(torch.empty, dtype=h.dtype, device=h.device)
+    y1c, doc, gac, dac = new(r, c), new(r, c), new(r, 4 * c), new(r, 4 * c)
+    vec = torch.empty((-(-r // tc_rows(c)), 7 * c), dtype=torch.float32,
+                      device=h.device)
+    _raise_on(lib.fused_mlp_bwd_tc(*_ptrs(h, *params, dout, dh, y1c, doc,
+                                          gac, dac, vec), r, c, eps,
+                                   _stream(h)), "fused_mlp_bwd_tc")
+    LAUNCHES["bwd"] += 1
+    return dh, (y1c, doc, gac, dac, vec)
+
+
+def wgrad_partials(inter):
+    """The bf16 weight-gradient pass (CUDA only): the ``(S, slot)`` fp32
+    workspace from ``bwd_rows``'s intermediates, slot s holding dW1,
+    dW2 and the vector partials of row range s."""
+    y1c, doc, gac, dac, vec = inter
+    r, c = y1c.shape
+    s, length = row_ranges(r, c)
+    ws = torch.empty((s, slot_floats(c)), dtype=torch.float32,
+                     device=y1c.device)
+    _raise_on(_kernels().fused_mlp_wgrad(*_ptrs(y1c, doc, gac, dac, vec, ws),
+                                         r, c, length, s, _stream(y1c)),
+              "fused_mlp_wgrad")
+    LAUNCHES["wgrad"] += 1
+    return ws
+
+
+def bwd_partials(h, ls, lb, w1, b1, w2, b2, gamma, dout, eps=1e-6):
+    """``(dh, ws)``: dh and the ``(S, slot)`` fp32 workspace of partial
+    gradient sums (CUDA only): bf16, the row pass then the
+    weight-gradient pass; fp32, the one backward kernel."""
+    _bwd_args(h, ls, lb, w1, b1, w2, b2, gamma, dout)
+    if h.dtype == torch.bfloat16:
+        dh, inter = bwd_rows(h, ls, lb, w1, b1, w2, b2, gamma, dout, eps)
+        return dh, wgrad_partials(inter)
+    lib = _kernels()
+    r, c = h.shape
     h, dout = h.contiguous(), dout.contiguous()
-    params = [t.contiguous() for t in params]
+    params = [t.contiguous() for t in (ls, lb, w1, b1, w2, b2, gamma)]
     s = splits(r, c)
     dh = torch.empty_like(h)
     ws = torch.empty((s, slot_floats(c)), dtype=torch.float32,
                      device=h.device)
     _raise_on(lib.fused_mlp_bwd(*_ptrs(h, *params, dout, dh, ws), r, c, eps,
-                                s, int(h.dtype == torch.bfloat16),
-                                _stream(h)), "fused_mlp_bwd")
+                                s, _stream(h)), "fused_mlp_bwd")
     LAUNCHES["bwd"] += 1
     return dh, ws
 

@@ -236,7 +236,8 @@ def test_logits_match_jax(fused):
     with torch.no_grad():
         got = _port_model(params, fused)(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, atol=LOGIT_TOL, rtol=LOGIT_TOL)
-    assert fm.LAUNCHES == {"fwd": 0, "bwd": 0, "reduce": 0}  # CPU: plain
+    assert fm.LAUNCHES == {"fwd": 0, "bwd": 0, "wgrad": 0,
+                           "reduce": 0}  # CPU: plain
 
 
 @functools.lru_cache(maxsize=None)
@@ -277,7 +278,7 @@ def test_adamw_step_matches_jax():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,rows", [(16, 50), (96, 333), (200, 77),
-                                    (768, 100)])
+                                    (768, 100), (96, 200704)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernels_match_plain(c, rows, dtype):
     if not torch.cuda.is_available():
