@@ -4,6 +4,7 @@ NVIDIA GPU: the quickest proof that the port still builds and trains.
 
     python3 chip_smoke.py            # needs one CUDA card; no arguments
     python3 chip_smoke.py --kernels-only   # phases 1-5 only
+    python3 chip_smoke.py --block-plans    # fused-block plan sweep
     # A/B of a kernel edit: time another tree's package with this script
     PYTHONPATH=<tree> python3 -P chip_smoke.py --timings-only
 
@@ -16,7 +17,8 @@ Phases, in order (any failure raises and exits non-zero):
    from the ``-Xptxas -v`` log (the three D=64 flash tensor-core kernels,
    the bf16 fused-MLP forward and backward row kernels at the four
    ConvNeXt-T widths and the weight-gradient kernel must be in it and
-   must not spill);
+   must not spill), and the fused block's (both instantiations of the
+   bf16 tensor-core kernel must be in it and must not spill);
 3. the flash kernels: ``fwd``, ``dq`` and ``dkv`` against their plain
    PyTorch versions at ViT-B/16 shapes (N=197, H=12, D=64, the smoke's
    batch) in bf16 and fp32, and at small ragged shapes for every
@@ -39,11 +41,16 @@ Phases, in order (any failure raises and exits non-zero):
    addmm, GELU, addmm, layer scale and residual, and its autograd
    backward);
 5. the fused-block kernel: its shared-memory formula against the plan
-   rule's; the kernel against ``reference_bottleneck`` at the four
-   ResNet-50 identity-block geometries at B=64 (56x56 C=256 F=64, 28x28
-   C=512 F=128, 14x14 C=1024 F=256, 7x7 C=2048 F=512) and a ragged shape,
-   fp32 and bf16, biases from N(0, 1); timings at the four B=64 shapes in
-   bf16 beside the plain version and the unfused cuDNN/cuBLAS schedule
+   rule's, for both dtypes; the kernel against ``reference_bottleneck``
+   at the four ResNet-50 identity-block geometries at B=64 (56x56 C=256
+   F=64, 28x28 C=512 F=128, 14x14 C=1024 F=256, 7x7 C=2048 F=512), a
+   ragged shape, a 7x7 shape whose C and F are no multiples of 16 (nor
+   of 8: the plain-load staging) and a ragged one whose bf16 plan splits
+   each tile over a cluster of two blocks, fp32 and bf16, biases from
+   N(0, 1); two bf16 runs at 56x56, at 7x7 and at the split ragged shape
+   must be bitwise identical;
+   timings at the four B=64 shapes in bf16 beside the plain version and
+   the unfused cuDNN/cuBLAS schedule, with the tile and the grid
    (``--kernels-only`` stops here);
 6. ViT-B/16 with ``attn=flash`` against ``attn=full`` on the same
    weights: fp32 logits; then bf16 logits and one backward's gradients
@@ -174,6 +181,14 @@ _R50_BLOCKS = ((56, 256, 64), (28, 512, 128), (14, 1024, 256),
                (7, 2048, 512))
 _R50_STAGES = (3, 4, 6, 3)
 _RAGGED_BLOCK = (3, 9, 11, 96, 40)  # B, H, W, C, F
+# C and F no multiples of 16 (nor of 8) at a 7x7 image.
+_ODD_BLOCK = (2, 7, 7, 100, 36)
+# Ragged W and F whose bf16 plan shares each tile between a cluster of
+# two blocks (as at ResNet-50's 7x7 geometry).
+_SPLIT_BLOCK = (3, 7, 9, 512, 200)
+# Both instantiations of the bf16 fused-block kernel (cp.async staging,
+# and plain loads for C or F off a multiple of 8): the spill gate's.
+_BLOCK_TC = ("block_tc_kernel<true>", "block_tc_kernel<false>")
 _VIT_SHAPE = dict(N=197, H=12, D=64)  # ViT-B/16 at 224 px: 196 patches + cls
 _BATCH = 64  # global batch of the kernel and train phases
 # ConvNeXt-T (depths, widths); stage i runs at 56 / 2^i px at 224 px.
@@ -359,10 +374,16 @@ def _compare_fused_qkv(fa, b, n, h, d, dtype, seed, offset) -> dict:
 def _kernel_label(mangled: str) -> str:
     """``fwd_tc_kernel<bf16,64>`` from a mangled flash entry name (the
     tensor-core kernels are bf16, the others fp32), ``mlp_bwd_tc_kernel<3>``
-    from a fused-MLP one (NJ), the name as given when neither parses."""
+    from a fused-MLP one (NJ), ``block_tc_kernel<true>`` from a fused-block
+    one (cp.async staging or not), the name as given when none parses."""
     m = re.search(r"(mlp_(?:fwd|bwd)_tc_kernel)ILi(\d+)E", mangled)
     if m:
         return f"{m.group(1)}<{m.group(2)}>"
+    m = re.search(r"block_tc_kernelILb([01])E", mangled)
+    if m:
+        return f"block_tc_kernel<{'true' if m.group(1) == '1' else 'false'}>"
+    if "bottleneck_kernelIfE" in mangled:
+        return "bottleneck_kernel<float>"
     if "mlp_wgrad_kernel" in mangled:
         return "mlp_wgrad_kernel"
     m = re.search(r"((?:fwd|dq|dkv)(?:_tc)?_kernel)ILi(\d+)E", mangled)
@@ -447,14 +468,17 @@ def _timings(fa, b, peaks) -> dict:
     return out_t
 
 
-def _ab_timings(fa, fm, peaks, card) -> None:
+def _ab_timings(fa, fm, fb, peaks, card) -> None:
     """``--timings-only``: the flash kernels (bf16, with their fp32
-    instantiations and SDPA) and the fused-MLP kernels per ConvNeXt-T
-    width (the reduce beside ``torch.sum``) and per step, timed by this
-    script's own functions whichever package is imported."""
+    instantiations and SDPA), the fused-MLP kernels per ConvNeXt-T
+    width (the reduce beside ``torch.sum``) and per step, and the bf16
+    fused block per ResNet-50 geometry beside the unfused schedule,
+    timed by this script's own functions whichever package is
+    imported."""
     flash = _timings(fa, _BATCH, peaks)
     per_width = _fused_timings(fm, peaks, card)
     steps = _fused_step_totals(per_width)
+    block = _block_timings(fb, peaks, card)
     print(json.dumps({
         "phase": "ab_timings", "package": os.path.dirname(fa.__file__),
         "card": card,
@@ -470,7 +494,12 @@ def _ab_timings(fa, fm, peaks, card) -> None:
         "fused_step_ms": {k: t["ms"] for k, t in steps.items()},
         "unfused_schedule_step_ms": {k: steps[k]["unfused_schedule_ms"]
                                      for k in ("fwd", "bwd")},
-        "reduce_step": steps["reduce"]}), flush=True)
+        "reduce_step": steps["reduce"],
+        "block_ms": {f"{hw}x{hw}": t["ms"] for (hw, _, _), t in block.items()},
+        "block_unfused_ms": {f"{hw}x{hw}": t["library_ms"]
+                             for (hw, _, _), t in block.items()},
+        "block_total_ms": sum(t["ms"] for t in block.values())}),
+        flush=True)
 
 
 def _norm_err(name, got, want, dtype_name) -> tuple:
@@ -736,22 +765,43 @@ def _block_err(name, got, want, tol) -> float:
     return float(err.max())
 
 
-def _block_compare(fb, shape, dtype, seed) -> float:
-    """The kernel against ``reference_bottleneck`` on the same inputs."""
+def _block_tile(fb, b, h, w, c, f, dtype, device) -> dict:
+    """The launch ``fused_bottleneck`` makes: the output tile, the
+    blocks per tile and the grid, and (bf16) each step's warps across
+    the columns, from ``fb.tile`` where the package has it (a tree
+    before the bf16 tensor-core kernel planned one tile rule for both
+    dtypes, ``fb.plan``, one block a tile)."""
+    if hasattr(fb, "tile"):
+        th, tw, split, wn = fb.tile(b, h, w, c, f, dtype, device)
+    else:
+        (th, tw), split, wn = fb.plan(h, w, f, device), 1, None
+    return {"tile": [th, tw], "blocks_per_tile": split,
+            "grid": b * -(-h // th) * -(-w // tw) * split,
+            "warps_n": list(wn) if wn and wn[0] else None}
+
+
+def _block_compare(fb, shape, dtype, seed, repeat=False) -> float:
+    """The kernel against ``reference_bottleneck`` on the same inputs;
+    with ``repeat``, a second launch must be bitwise identical."""
     import torch
     b, h, w, c, f = shape
     dname = str(dtype).replace("torch.", "")
     args = _block_inputs(b, h, w, c, f, dtype, seed)
     got = fb.fused_bottleneck(*args)
+    again = fb.fused_bottleneck(*args) if repeat else None
     torch.cuda.synchronize()
     tag = f"B={b} {h}x{w} C={c} F={f} {dname}"
+    if repeat and not torch.equal(got, again):
+        raise AssertionError(f"fused_block {tag}: two runs differ in "
+                             f"{int((got != again).sum())} elements")
     err = _block_err(f"fused_block {tag}", got,
                      fb.reference_bottleneck(*args), _BLOCK_TOL[dname])
     atol, rtol = _BLOCK_TOL[dname]
     print(json.dumps({"phase": "block_compare", "shape": tag,
-                      "tile": fb.plan(h, w, f, got.device),
+                      **_block_tile(fb, b, h, w, c, f, dtype, got.device),
                       "max_abs_err": err,
-                      "tolerance": f"|err| <= {atol} + {rtol} * |plain|"}),
+                      "tolerance": f"|err| <= {atol} + {rtol} * |plain|",
+                      **({"bitwise_repeat": True} if repeat else {})}),
           flush=True)
     return err
 
@@ -778,7 +828,7 @@ def _block_timings(fb, peaks, card) -> dict:
     schedule at each ResNet-50 identity geometry at B=64 in bf16, and the
     bound: max(bytes / HBM rate, flops / bf16 peak), bytes = x read, out
     written, the weights and biases read once; flops = 2 B H W (2 C F +
-    9 F^2)."""
+    9 F^2); with the tile and the grid (blocks) it launched."""
     import torch
     out = {}
     for hw, c, f in _R50_BLOCKS:
@@ -797,7 +847,9 @@ def _block_timings(fb, peaks, card) -> dict:
             x, w1, b1, w3_oihw, b3, wc, bc))
         t["bound_by"] = ("bytes" if t["t_bytes_ms"] >= t["t_ops_ms"]
                          else "operations")
-        t["tile"] = fb.plan(hw, hw, f, x.device)
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        t.update(_block_tile(fb, _BATCH, hw, hw, c, f, torch.bfloat16,
+                             x.device))
         out[(hw, c, f)] = t
         print(json.dumps({"phase": "block_kernel", "name": "fused_block",
                           "card": card,
@@ -806,6 +858,68 @@ def _block_timings(fb, peaks, card) -> dict:
                                      "(addmm, conv2d, addmm)", **t}),
               flush=True)
     return out
+
+
+# --block-plans: forced launches of the bf16 fused block per ResNet-50
+# geometry, (th, tw, blocks per tile, warps across the columns in steps
+# 1, 2, 3); the planned launch is timed beside them.
+_BLOCK_PLANS = {
+    56: ((14, 28, 1, (2, 2, 8)), (14, 28, 1, (2, 2, 2)),
+         (14, 28, 1, (2, 2, 4)), (14, 14, 1, (2, 2, 8))),
+    28: ((14, 14, 1, (4, 4, 8)), (14, 14, 1, (4, 4, 4)),
+         (14, 14, 1, (4, 2, 8)), (14, 14, 1, (2, 2, 2)),
+         (14, 14, 2, (4, 4, 8)), (7, 14, 1, (4, 4, 8))),
+    14: ((7, 14, 1, (8, 8, 8)), (7, 14, 1, (4, 4, 4)),
+         (7, 14, 1, (4, 4, 8)), (7, 14, 1, (2, 2, 2)),
+         (7, 14, 2, (8, 8, 8)), (7, 7, 1, (8, 8, 8))),
+    7: ((7, 7, 2, (8, 8, 8)), (7, 7, 2, (4, 4, 4)), (7, 7, 2, (8, 4, 4)),
+        (7, 7, 2, (2, 2, 2)), (4, 7, 1, (8, 8, 8)), (7, 7, 1, (8, 8, 8))),
+}
+
+
+def _block_plans(fb, card) -> None:
+    """``--block-plans``: the bf16 fused block at each ResNet-50 identity
+    geometry (B=64) at forced launches and at the planned one, each held
+    to the plain version and timed beside the plan model's terms
+    (``fb.tc_terms``: waves, warp steps, KB staged, passes); then the
+    least-squares fit of the model's three weights to all these times
+    (how ``TC_STEP_NS``, ``TC_KB_NS`` and ``TC_PASS_NS`` are set) and its
+    worst relative error."""
+    import numpy as np
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    terms, times = [], []
+    for hw, c, f in _R50_BLOCKS:
+        args = _block_inputs(_BATCH, hw, hw, c, f, torch.bfloat16, 11 + c)
+        want = fb.reference_bottleneck(*args)
+        planned = fb.plan_tc(_BATCH, hw, hw, c, f, args[0].device)
+        plans = [fb.TcPlan(th, tw, s, wn)
+                 for th, tw, s, wn in _BLOCK_PLANS[hw]]
+        plans += [planned] if planned not in plans else []
+        for plan in plans:
+            tag = f"fused_block {hw}x{hw} at {tuple(plan)}"
+            _block_err(tag, fb.launch(plan, *args), want,
+                       _BLOCK_TOL["bfloat16"])
+            ms = _cuda_ms(lambda: fb.launch(plan, *args))
+            waves, steps, kb, passes = fb.tc_terms(_BATCH, hw, hw, c, f,
+                                                   plan, sms)
+            terms.append([waves * steps, waves * kb, waves * passes])
+            times.append(ms * 1e6)
+            print(json.dumps({"phase": "block_plan", "card": card,
+                              "shape": f"B={_BATCH} {hw}x{hw} C={c} F={f}",
+                              "plan": list(plan), "planned": plan == planned,
+                              "ms": ms, "waves": waves, "warp_steps": steps,
+                              "kb": kb, "passes": passes}), flush=True)
+    a, t = np.array(terms), np.array(times)
+    coef = np.linalg.lstsq(a, t, rcond=None)[0]
+    used = np.array([fb.TC_STEP_NS, fb.TC_KB_NS, fb.TC_PASS_NS])
+    print(json.dumps({
+        "phase": "block_plan_fit", "card": card, "points": len(t),
+        "fit_ns": {"step": coef[0], "kb": coef[1], "pass": coef[2]},
+        "fit_max_rel_err": float(np.max(np.abs(a @ coef - t) / t)),
+        "plan_ns": {"step": used[0], "kb": used[1], "pass": used[2]},
+        "plan_max_rel_err": float(np.max(np.abs(a @ used - t) / t))}),
+        flush=True)
 
 
 def _identity_blocks(model):
@@ -1184,7 +1298,8 @@ _GROUPS = (  # kernel-name fragment -> group of the step breakdown
     ("mlp_wgrad_kernel", "fused_mlp_wgrad"),
     ("mlp_fwd_kernel<", "fused_mlp_fwd"), ("mlp_bwd_kernel<", "fused_mlp_bwd"),
     ("mlp_reduce_kernel", "fused_mlp_reduce"),
-    ("bottleneck_kernel<", "fused_block"), ("batch_norm", "batch_norm"),
+    ("bottleneck_kernel<", "fused_block"), ("block_tc_kernel<", "fused_block"),
+    ("batch_norm", "batch_norm"),
     ("pool", "pooling"),
     ("fwd_tc_kernel<", "flash_fwd"), ("dq_tc_kernel<", "flash_dq"),
     ("dkv_tc_kernel<", "flash_dkv"),
@@ -1265,7 +1380,7 @@ def _profile(arch: str, overrides: dict, batch: int, steps: int = 3,
 
 
 def _kernel_rows(card, timing, errs, train, fused, fused_errs, fused_train,
-                 block, block_errs, block_check, resnet_trains):
+                 block, block_errs, block_check, resnet_trains, block_regs):
     rows = []
     for name, key, replaces in _KERNELS:
         t = timing[key]
@@ -1311,6 +1426,7 @@ def _kernel_rows(card, timing, errs, train, fused, fused_errs, fused_train,
     rows.append({
         "name": name, "route": "cuda", "source": _BLOCK_SOURCE,
         "replaces": replaces, "launches": block_check["launches_fp32"],
+        "launches_bf16": block_check["launches_bf16"],
         "launches_per": "the model check: one eval forward's 12 identity "
                         "bottlenecks of the trained ResNet-50 (fp32), "
                         "counters zeroed just before",
@@ -1333,8 +1449,10 @@ def _kernel_rows(card, timing, errs, train, fused, fused_errs, fused_train,
                "(B=64, bf16), summed",
         "per_geometry": {f"{hw}x{hw} C={c} F={f}": {
             k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                              "bound_by", "tile")}
+                              "bound_by", "bound_share", "tile",
+                              "blocks_per_tile", "grid", "warps_n")}
             for (hw, c, f), t in block.items()},
+        "registers_spills": {k: block_regs[k] for k in _BLOCK_TC},
         "passed": True})
     return rows
 
@@ -1346,6 +1464,10 @@ def main(argv=None) -> int:
                          "compiler's register/spill report, compare and "
                          "time the kernels, then stop (no train phase, no "
                          "result line)")
+    ap.add_argument("--block-plans", action="store_true",
+                    help="time the bf16 fused block at forced launch plans "
+                         "per ResNet-50 geometry and fit the plan's cost "
+                         "weights to the times, then stop")
     ap.add_argument("--timings-only", action="store_true",
                     help="A/B of a kernel edit against another tree's "
                          "package (PYTHONPATH=<tree> python3 -P "
@@ -1395,7 +1517,10 @@ def main(argv=None) -> int:
                                        _cuda.BUILD_LOG.items()},
                       "spill_lines": spills}), flush=True)
     if args.timings_only:
-        _ab_timings(fa, fm, peaks, card)
+        _ab_timings(fa, fm, fb, peaks, card)
+        return 0
+    if args.block_plans:
+        _block_plans(fb, card)
         return 0
     flash_regs = _ptxas_report(_cuda.BUILD_LOG["flash_attention"]["log"])
     print(json.dumps({"phase": "flash_ptxas", "kernels": flash_regs}),
@@ -1403,10 +1528,14 @@ def main(argv=None) -> int:
     fused_regs = _ptxas_report(_cuda.BUILD_LOG["fused_mlp"]["log"])
     print(json.dumps({"phase": "fused_ptxas", "kernels": fused_regs}),
           flush=True)
+    block_regs = _ptxas_report(_cuda.BUILD_LOG["fused_block"]["log"])
+    print(json.dumps({"phase": "block_ptxas", "kernels": block_regs}),
+          flush=True)
     for regs_of, names in ((flash_regs, ("fwd_tc_kernel<bf16,64>",
                                          "dq_tc_kernel<bf16,64>",
                                          "dkv_tc_kernel<bf16,64>")),
-                           (fused_regs, _FUSED_TC)):
+                           (fused_regs, _FUSED_TC),
+                           (block_regs, _BLOCK_TC)):
         for name in names:
             regs = regs_of.get(name)
             if regs is None or "spill_stores" not in regs:
@@ -1471,21 +1600,33 @@ def main(argv=None) -> int:
           flush=True)
 
     lib_block_smem = fb._kernels().fused_block_smem_bytes
-    for th, tw in fb.TILES:
-        for f in (40, 64, 512):
-            if lib_block_smem(th, tw, f) != fb.smem_bytes(th, tw, f):
-                raise AssertionError(
-                    f"fused_block smem at {th}x{tw} F={f}: kernel "
-                    f"{lib_block_smem(th, tw, f)} != plan "
-                    f"{fb.smem_bytes(th, tw, f)}")
+    tc_tiles = {tuple(fb.plan_tc(*shape)[:2]) for shape in
+                [(_BATCH, hw, hw, c, f) for hw, c, f in _R50_BLOCKS]
+                + [_RAGGED_BLOCK, _ODD_BLOCK, _SPLIT_BLOCK]}
+    tc_tiles |= {(1, 1), (7, 7), (32, 32)}
+    for dtype, tiles in ((torch.float32, fb.TILES),
+                         (torch.bfloat16, sorted(tc_tiles))):
+        for th, tw in tiles:
+            for f in (36, 40, 64, 512):
+                got = lib_block_smem(th, tw, f, int(dtype == torch.bfloat16))
+                if got != fb.smem_bytes(th, tw, f, dtype):
+                    raise AssertionError(
+                        f"fused_block smem at {th}x{tw} F={f} {dtype}: "
+                        f"kernel {got} != plan "
+                        f"{fb.smem_bytes(th, tw, f, dtype)}")
     block_errs = {}
     for hw, c, f in _R50_BLOCKS:
         for dtype in (torch.bfloat16, torch.float32):
-            err = _block_compare(fb, (_BATCH, hw, hw, c, f), dtype, hw + c)
+            err = _block_compare(fb, (_BATCH, hw, hw, c, f), dtype, hw + c,
+                                 repeat=dtype == torch.bfloat16
+                                 and hw in (56, 7))
             if dtype == torch.bfloat16:
                 block_errs[(hw, c, f)] = err
-    for dtype in (torch.bfloat16, torch.float32):
-        _block_compare(fb, _RAGGED_BLOCK, dtype, 5)
+    for shape in (_RAGGED_BLOCK, _ODD_BLOCK, _SPLIT_BLOCK):
+        for dtype in (torch.bfloat16, torch.float32):
+            _block_compare(fb, shape, dtype, 5,
+                           repeat=dtype == torch.bfloat16
+                           and shape == _SPLIT_BLOCK)
     block = _block_timings(fb, peaks, card)
     if args.kernels_only:
         return 0
@@ -1520,7 +1661,7 @@ def main(argv=None) -> int:
     _profile("resnet50", {}, _BATCH, opt=sgd)
     rows = _kernel_rows(card, timing, main_errs, vit, fused, fused_errs,
                         convnext, block, block_errs, block_check,
-                        (resnet18, resnet50))
+                        (resnet18, resnet50), block_regs)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

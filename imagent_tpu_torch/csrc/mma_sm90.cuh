@@ -1,5 +1,6 @@
 // Tensor-core building blocks shared by the bf16 kernels of this directory
-// (flash_attention.cu, fused_mlp.cu): cp.async staging, ldmatrix operand
+// (flash_attention.cu, fused_mlp.cu, fused_block.cu): cp.async staging,
+// ldmatrix operand
 // loads and mma.sync.m16n8k16 bf16 with fp32 accumulation, for sm_90a.
 // Each .cu includes it once; everything here is internal to that
 // translation unit.

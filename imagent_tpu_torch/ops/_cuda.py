@@ -25,6 +25,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# Wall-clock bound of one source's nvcc (the slowest took ~40 s on the
+# H100 machine); a build past it is killed and fails.
+NVCC_TIMEOUT_S = 600
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": build wall time, "log": nvcc/ptxas output}; empty
 # for a library found already built.
@@ -56,8 +60,9 @@ def _target(name: str) -> Path:
 
 def build(names) -> None:
     """Build every library of ``names`` that is not built yet, one
-    ``nvcc`` per source, all started together. Raises with the
-    compiler's output if any build fails."""
+    ``nvcc`` per source, all started together, each killed past
+    ``NVCC_TIMEOUT_S``. Raises with the compiler's output if any build
+    fails."""
     jobs = []
     for name in names:
         out = _target(name)
@@ -71,7 +76,15 @@ def build(names) -> None:
                                       stderr=subprocess.STDOUT, text=True)))
     failed = []
     for name, out, tmp, t0, proc in jobs:
-        log, _ = proc.communicate()
+        try:
+            log, _ = proc.communicate(
+                timeout=max(1.0, NVCC_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
+            failed.append(f"nvcc for {name}.cu ran past {NVCC_TIMEOUT_S} s:"
+                          f"\n{log}")
+            continue
         if proc.returncode:
             failed.append(f"nvcc failed for {name}.cu:\n{log}")
             continue

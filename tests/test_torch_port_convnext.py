@@ -224,14 +224,21 @@ def test_weight_carry_round_trip_is_exact():
     assert sd["head.weight"].shape == (CLASSES, 32)
 
 
-@pytest.mark.parametrize("fused", ["on", "off", "auto"])
-def test_logits_match_jax(fused):
-    params = _jax_init()
+@pytest.fixture(scope="module")
+def jax_logits():
+    """``(x, logits)`` of the JAX model on one input, shared by the fused
+    modes of ``test_logits_match_jax`` (the same reference for each)."""
     x = np.random.default_rng(3).normal(size=(3, 16, 16, 3)).astype(
         np.float32)
     jm = JaxConvNeXt(depths=DEPTHS, dims=DIMS, num_classes=CLASSES,
                      fused_mlp="on")
-    want = np.asarray(jm.apply({"params": params}, x, train=False))
+    return x, np.asarray(jm.apply({"params": _jax_init()}, x, train=False))
+
+
+@pytest.mark.parametrize("fused", ["on", "off", "auto"])
+def test_logits_match_jax(fused, jax_logits):
+    params = _jax_init()
+    x, want = jax_logits
     fm.reset_launches()
     with torch.no_grad():
         got = _port_model(params, fused)(torch.from_numpy(x)).numpy()

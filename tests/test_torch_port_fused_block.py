@@ -9,12 +9,18 @@ against the JAX package on the CPU, on numpy-seeded inputs:
 * ``fold_bn`` exactness, and the port's eval-mode ``Bottleneck`` equal to
   ``reference_bottleneck`` with its BN folded, at 2e-4
   (``tests/test_fused_block.py:96``);
-* the kernel's tile plan at each ResNet-50 identity geometry, and the
-  wrapper's refusal of CPU tensors (the kernel has no CPU mode).
+* the kernel's tile plan at each ResNet-50 identity geometry, for the
+  fp32 kernel (``plan``) and the bf16 tensor-core kernel (``plan_tc``),
+  with their shared-memory formulas, and the wrapper's refusal of CPU
+  tensors (the kernel has no CPU mode).
 
 The CUDA kernel itself runs only on a card (``cuda`` marker); there it is
-held to the plain version here.
+held to the plain version here, and two bf16 runs must be bitwise
+identical. ``test_torch_port_fused_block_tc.py`` emulates the bf16
+kernel's decomposition on the CPU.
 """
+
+import collections
 
 import jax.numpy as jnp
 import numpy as np
@@ -124,12 +130,39 @@ def test_fused_bottleneck_refuses_cpu_tensors():
                             args[2].bfloat16(), *args[3:])
 
 
+# A bf16 case of the plan test: the batch, C, and the launch plan_tc must
+# choose (tile, blocks per tile, warps across the columns per step).
+_TC = collections.namedtuple("_TC", "b c th tw split wn")
+
+
 @pytest.mark.parametrize("hw,f,tile", [
     (56, 64, (4, 8)), (28, 128, (6, 6)), (14, 256, (4, 8)), (7, 512, (4, 8)),
-    (9, 40, (6, 6))])
+    (9, 40, (6, 6)),
+    pytest.param(56, 64, _TC(64, 256, 14, 28, 1, (2, 2, 8)),
+                 id="bfloat16-56-64"),
+    pytest.param(28, 128, _TC(64, 512, 14, 14, 1, (4, 2, 2)),
+                 id="bfloat16-28-128"),
+    pytest.param(14, 256, _TC(64, 1024, 7, 14, 1, (8, 4, 4)),
+                 id="bfloat16-14-256"),
+    pytest.param(7, 512, _TC(64, 2048, 7, 7, 2, (4, 8, 8)),
+                 id="bfloat16-7-512")])
 def test_plan_at_resnet50_geometries(hw, f, tile):
-    """The fewest tiles whose shared memory fits an H100 (232,448 bytes
-    opt-in): the halo of every tile is one 64-row GEMM pass."""
+    """fp32: the fewest tiles whose shared memory fits an H100 (232,448
+    bytes opt-in): the halo of every tile is one 64-row GEMM pass. bf16
+    (``_TC`` cases, B=64): the launch of least ``tc_cost`` on 132 SMs,
+    within the same limit (the fastest of ``chip_smoke.py
+    --block-plans``' timed launches, or within 0.5% of it); at 7x7 a
+    whole image shared by a cluster of two blocks."""
+    if isinstance(tile, _TC):
+        assert fb.plan_tc(tile.b, hw, hw, tile.c, f) == tile[2:]
+        assert fb.tile(tile.b, hw, hw, tile.c, f, torch.bfloat16) == tile[2:]
+        assert fb.smem_bytes(tile.th, tile.tw, f, torch.bfloat16) \
+            <= fb.H100_SMEM_OPTIN
+        # the geometry table, y1 over the 9 x 9 halo and y2 over the 7 x 7
+        # tile (512 channels + 8 of pitch), two stages of 23,040 elements
+        assert fb.smem_bytes(7, 7, 512, torch.bfloat16) == \
+            128 + 2 * ((81 + 49) * 520 + 2 * 23040)
+        return
     assert fb.plan(hw, hw, f) == tile
     th, tw = tile
     assert (th + 2) * (tw + 2) <= fb.ROWS
@@ -141,6 +174,8 @@ def test_plan_at_resnet50_geometries(hw, f, tile):
 def test_plan_refuses_a_width_that_does_not_fit():
     with pytest.raises(ValueError, match="does not fit"):
         fb.plan(7, 7, 8192)
+    with pytest.raises(ValueError, match="does not fit"):
+        fb.plan_tc(1, 7, 7, 64, 16384)
 
 
 # ------------------------------------------------------------ on the card
@@ -148,7 +183,8 @@ def test_plan_refuses_a_width_that_does_not_fit():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 9, 11, 96, 40), (3, 7, 7, 256, 64),
-                                   (2, 14, 14, 128, 32)])
+                                   (2, 14, 14, 128, 32), (2, 7, 7, 100, 36),
+                                   (3, 7, 9, 512, 200)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernel_matches_plain(shape, dtype):
     if not torch.cuda.is_available():
@@ -166,3 +202,17 @@ def test_cuda_kernel_matches_plain(shape, dtype):
     # _BLOCK_TOL, the JAX package's 3e-2).
     tol = 1e-4 if dtype == "float32" else 3e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 9, 11, 96, 40), (2, 7, 7, 100, 36),
+                                   (3, 7, 9, 512, 200)])
+def test_cuda_bf16_kernel_is_bitwise_repeatable(shape):
+    """Every output is written once, with no atomics, also where two
+    blocks of a cluster share a tile ((3, 7, 9, 512, 200) plans a split)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    b, h, w, c, f = shape
+    args = _cast([torch.from_numpy(a).cuda()
+                  for a in _args(6, b, h, w, c, f)], torch.bfloat16)
+    assert torch.equal(fb.fused_bottleneck(*args), fb.fused_bottleneck(*args))
