@@ -88,7 +88,7 @@ Phases, in order (any failure raises and exits non-zero):
     zeroed just before and reading exactly 12 after; each held to the
     block's own fp32 output (``_MODEL_TOL``) and to its float64 output;
     then the same inputs and folded weights in bf16 against
-    ``reference_bottleneck`` at 3e-2;
+    ``reference_bottleneck`` at 3e-2, again exactly 12 launches;
 12. a profile of each main path's train step (``torch.profiler``), and
     of ConvNeXt-T with ``--fused-mlp off``: host step time, device time
     per kernel group, the device's idle share;
@@ -1018,6 +1018,10 @@ def _block_model_check(fb, trained_state, batch: int) -> dict:
                                   (atol * scales[k], rtol)))
         vs_module.append(float((got.float() - want).abs().max()))
     torch.cuda.synchronize()
+    if fb.LAUNCHES["fused_block"] != 12:
+        raise AssertionError(f"bf16 fused_block launched "
+                             f"{fb.LAUNCHES['fused_block']} times for 12 "
+                             "blocks")
     res = {"phase": "block_model_check", "blocks": 12,
            "launches_fp32": launches,
            "launches_bf16": fb.LAUNCHES["fused_block"],
