@@ -73,14 +73,27 @@ Phases, in order (any failure raises and exits non-zero):
    ``--arch``, so ResNet-18 at 448 px with SGD (lr 0.1, momentum 0.9, wd
    1e-4), bf16, global batch 128 (the repo's primary cell), 3 train steps
    and one eval batch per epoch, 2 epochs, --save-model;
-10. main path 4: ResNet-50 at 224 px, SGD, bf16, global batch 64, 3
+10. main path 5, data parallelism: first one train step of ResNet-18
+    (448 px, B=128, bf16, SGD) through a 1-rank NCCL group formed under
+    a Slurm world of one, and the same step with no group, under
+    ``cudnn.deterministic`` for this check only: params, BatchNorm
+    buffers and metric vector bitwise equal, one ``pmean`` and one
+    ``psum`` with the group and none without, then 5 steps of each
+    timed; then main path 3's command again as a Slurm world of one
+    (the ``SLURM_*`` variables and a free ``IMAGENT_COORDINATOR_PORT``
+    set for that call only, restored after, no group left open): the
+    banner must name a world of 1 over nccl and the collective counter,
+    zeroed just before, must read exactly one ``pmean`` and one ``psum``
+    per train step and one ``psum`` per eval step; the ``ddp`` line
+    puts its img/s beside main path 3's;
+11. main path 4: ResNet-50 at 224 px, SGD, bf16, global batch 64, 3
     train steps and one eval batch per epoch, 2 epochs, --save-model.
     Every counter is zeroed before each ResNet path and must read 0
     after it: no model path calls the fused block, as in the JAX
     package. Every train path must write its last checkpoint; whether it
     wrote a best one (only on a top-1 above 0, as in the JAX engine) is
     reported;
-11. the model check: the 12 stride-1 identity bottlenecks of that trained
+12. the model check: the 12 stride-1 identity bottlenecks of that trained
     ResNet-50 (its last checkpoint, after 2 epochs), eval mode, fp32,
     each block's input captured on one
     synthetic batch, its BN folded (``fold_bn``) from the trained running
@@ -89,10 +102,10 @@ Phases, in order (any failure raises and exits non-zero):
     block's own fp32 output (``_MODEL_TOL``) and to its float64 output;
     then the same inputs and folded weights in bf16 against
     ``reference_bottleneck`` at 3e-2, again exactly 12 launches;
-12. a profile of each main path's train step (``torch.profiler``), and
+13. a profile of each main path's train step (``torch.profiler``), and
     of ConvNeXt-T with ``--fused-mlp off``: host step time, device time
     per kernel group, the device's idle share;
-13. the ``kernels`` JSON line, the card line, then the device JSON line
+14. the ``kernels`` JSON line, the card line, then the device JSON line
     last.
 
 Imports nothing of JAX or of the JAX package.
@@ -1296,6 +1309,169 @@ def _train_resnet(arch, argv, counters, batch: int, epochs: int,
     return out
 
 
+@contextlib.contextmanager
+def _slurm_world_of_one(**overrides):
+    """The ``SLURM_*`` variables of a one-task job (with ``overrides``)
+    and a free ``IMAGENT_COORDINATOR_PORT``, for the body only: the port
+    then forms its NCCL group as every rank of a larger job does. The
+    environment is restored after, and no process group may be left
+    open."""
+    import socket
+
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"SLURM_JOB_NUM_NODES": "1", "SLURM_NTASKS": "1",
+           "SLURM_PROCID": "0", "SLURM_NODEID": "0", "SLURM_LOCALID": "0",
+           "SLURM_JOB_NODELIST": "127.0.0.1",
+           "IMAGENT_COORDINATOR_PORT": str(port), **overrides}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if dist.is_initialized():
+        raise AssertionError("a process group was left open")
+
+
+def _ddp_step_check(batch: int, image_size: int, steps: int = 5) -> dict:
+    """One train step of the same ResNet-18 state and batch (the default
+    command's model, bf16, SGD) through the 1-rank NCCL group and with no
+    group, under ``cudnn.deterministic`` for this check only: the params,
+    the BatchNorm buffers and the metric vector must be bitwise equal (a
+    1-rank sum and a division by 1 are exact), and the step must make
+    exactly one ``pmean`` and one ``psum`` with the group, none without.
+    Then ``steps`` more steps of each are timed (host clock around
+    synchronized steps)."""
+    import torch
+    import torch.distributed as dist
+    from imagent_tpu_torch import cluster
+    from imagent_tpu_torch.models import create_model
+    from imagent_tpu_torch.parallel import collectives
+    from imagent_tpu_torch.train import (
+        create_train_state, make_optimizer, make_train_step,
+    )
+    g = torch.Generator(device="cuda").manual_seed(7)
+    images = torch.randint(0, 256, (batch, image_size, image_size, 3),
+                           generator=g, device="cuda", dtype=torch.uint8)
+    labels = torch.randint(0, 1000, (batch,), generator=g, device="cuda",
+                           dtype=torch.int32)
+    lr = torch.tensor(0.1, device="cuda")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        with _slurm_world_of_one():
+            senv, device, group = cluster.initialize("gpu")
+            try:
+                backend, world = (dist.get_backend(group),
+                                  dist.get_world_size(group))
+                if (backend, world) != ("nccl", 1):
+                    raise AssertionError(f"group is {backend} of {world}, "
+                                         "expected nccl of 1")
+                for name, grp in (("group", group), ("no_group", None)):
+                    model = create_model(
+                        "resnet18", 1000, bf16=True, image_size=image_size,
+                        generator=torch.Generator().manual_seed(0)).to(device)
+                    opt = make_optimizer(0.9, 1e-4, "sgd")
+                    state = create_train_state(model, opt)
+                    step = make_train_step(opt, (0.5,) * 3, (0.5,) * 3,
+                                           group=grp)
+                    collectives.reset_calls()
+                    state, metrics = step(state, images, labels, lr)
+                    calls = dict(collectives.CALLS)
+                    torch.cuda.synchronize()
+                    after = {k: v.clone() for k, v in
+                             state.model.state_dict().items()}
+                    t0 = time.perf_counter()
+                    for _ in range(steps):
+                        step(state, images, labels, lr)
+                    torch.cuda.synchronize()
+                    runs[name] = {
+                        "state": after, "metrics": metrics.clone(),
+                        "calls": calls,
+                        "step_ms": (time.perf_counter() - t0) * 1e3 / steps}
+                    pmean_bytes = sum(t.numel() * t.element_size()
+                                      for t in after.values())
+                    del model, state, step
+            finally:
+                cluster.destroy(group)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    a, b = runs["group"], runs["no_group"]
+    if (a["calls"], b["calls"]) != ({"psum": 1, "pmean": 1},
+                                    {"psum": 0, "pmean": 0}):
+        raise AssertionError(f"collectives per step: {a['calls']} with the "
+                             f"group, {b['calls']} without")
+    differ = [k for k in a["state"] if not torch.equal(a["state"][k],
+                                                       b["state"][k])]
+    if differ or not torch.equal(a["metrics"], b["metrics"]):
+        raise AssertionError(f"1-rank NCCL step differs from the step with "
+                             f"no group: {differ[:5]} metrics "
+                             f"{a['metrics'].tolist()} vs "
+                             f"{b['metrics'].tolist()}")
+    return {"bitwise_equal": True, "tensors_compared": len(a["state"]),
+            "pmean_bytes_per_step": pmean_bytes,
+            "psum_bytes_per_train_step": 5 * 4,
+            "step_ms_group": a["step_ms"], "step_ms_no_group": b["step_ms"],
+            "timed_steps": steps, "cudnn_deterministic": True}
+
+
+def _train_ddp(ports, resnet18, card, batch: int, epochs: int, steps: int,
+               workers: int) -> dict:
+    """Main path 5: the default command as a Slurm world of one over
+    NCCL; the collective counter, zeroed just before, must read exactly
+    one ``pmean`` and one ``psum`` per train step and one ``psum`` per
+    eval step. Printed as the ``ddp`` line, beside main path 3."""
+    import torch
+    from imagent_tpu_torch.__main__ import main
+    from imagent_tpu_torch.parallel import collectives
+    check = _ddp_step_check(batch, 448)
+    # A task whose local rank has no card of its own exits 78 before any
+    # group forms: no shared card, no CPU or gloo fallback.
+    cards = torch.cuda.device_count()
+    refusal = io.StringIO()
+    with _slurm_world_of_one(SLURM_LOCALID=str(cards)), \
+            contextlib.redirect_stdout(refusal):
+        rc = main(["--dataset", "synthetic", "--workers", "0"])
+    if rc != 78 or "has no CUDA device of its own" not in refusal.getvalue():
+        raise AssertionError(f"local rank {cards} of {cards} card(s) exited "
+                             f"{rc}: {refusal.getvalue()}")
+    tee = _Tee(sys.stdout)
+    with _slurm_world_of_one(), contextlib.redirect_stdout(tee):
+        collectives.reset_calls()
+        res = _train_resnet("resnet18 (Slurm world of one, NCCL)", [],
+                            ports, batch, epochs, steps, workers)
+        calls = dict(collectives.CALLS)
+    banner = re.findall(r"^\[rank 0/1\] .* world 1 over nccl .*$",
+                        "".join(tee.parts), re.M)
+    if not banner:
+        raise AssertionError("no rank banner naming a world of 1 over nccl")
+    want = {"pmean": res["steps"], "psum": res["steps"] + res["eval_steps"]}
+    if calls != want:
+        raise AssertionError(f"collectives {calls} != {want} "
+                             f"({res['steps']} train and "
+                             f"{res['eval_steps']} eval steps)")
+    line = {"phase": "ddp", "card": card, "backend": "nccl", "world": 1,
+            "banner": banner[0], "collectives": calls,
+            "collectives_per_train_step": 2,
+            "collectives_per_eval_step": 1,
+            "bytes_per_gradient_reduce": check["pmean_bytes_per_step"],
+            "img_per_s": res["img_per_s_last_epoch"],
+            "img_per_s_main_path_3": resnet18["img_per_s_last_epoch"],
+            "peak_mem_gib": res["peak_mem_bytes"] / 2**30,
+            "peak_mem_gib_main_path_3": resnet18["peak_mem_bytes"] / 2**30,
+            "local_rank_without_card_exit": rc, "step_check": check}
+    print(json.dumps(line), flush=True)
+    return res
+
+
 _GROUPS = (  # kernel-name fragment -> group of the step breakdown
     ("mlp_fwd_tc_kernel<", "fused_mlp_fwd"),
     ("mlp_bwd_tc_kernel<", "fused_mlp_bwd"),
@@ -1645,13 +1821,16 @@ def main(argv=None) -> int:
     # SGD lr 0.1 momentum 0.9 wd 1e-4, bf16): only the batch and the data.
     resnet18 = _train_resnet("resnet18 (default)", [], ports, 128, epochs=2,
                              steps=3, workers=8)
+    # Main path 5: the same command as a Slurm world of one over NCCL.
+    ddp = _train_ddp(ports, resnet18, card, 128, epochs=2, steps=3,
+                     workers=8)
     # Main path 4: bench.py:263's ResNet-50 cell, batch 256 cut to 64.
     resnet50, last50 = _train_resnet(
         "resnet50", ["--arch", "resnet50", "--image-size", "224"], ports,
         _BATCH, epochs=2, steps=3, workers=8, keep_last=True)
     block_check = _block_model_check(fb, last50, _BATCH)
     del last50
-    for res in (vit, convnext, convnext_off, resnet18, resnet50):
+    for res in (vit, convnext, convnext_off, resnet18, ddp, resnet50):
         print(json.dumps({"phase": "train_summary", "arch": res["arch"],
                           "card": card,
                           "img_per_s": res["img_per_s_last_epoch"],

@@ -19,7 +19,7 @@ from typing import Sequence
 class Config:
     # ---- reference flag surface (imagenet.py:435-450) ----
     seed: int = 0
-    backend: str = "gpu"  # gpu (CUDA, the default) | cpu
+    backend: str = "gpu"  # gpu (CUDA, the default) | cpu; nccl/gloo alias
     batch_size: int = 128  # per data-parallel replica, as in the reference
     epochs: int = 100
     lr: float = 0.1
@@ -381,7 +381,9 @@ def build_parser() -> argparse.ArgumentParser:
     # Reference flag names kept verbatim (imagenet.py:435-450).
     p.add_argument("--seed", type=int, default=c.seed, help="random seed")
     p.add_argument("--backend", type=str, default=c.backend,
-                   help="gpu (CUDA; refused when no CUDA device) or cpu")
+                   help="gpu (CUDA, NCCL across ranks; refused when no "
+                        "CUDA device) or cpu (gloo across ranks); the "
+                        "reference's nccl and gloo mean gpu and cpu")
     p.add_argument("--batch-size", type=int, default=c.batch_size,
                    help="per-replica batch size (default: 128)")
     p.add_argument("--epochs", type=int, default=c.epochs,
@@ -731,7 +733,8 @@ PORTED = frozenset({
     "ckpt_dir", "resume", "dataset", "synthetic_size", "bf16",
     "prefetch_depth", "warmup_epochs", "label_smoothing", "grad_accum",
     "schedule", "eval_every", "log_every", "health_stats", "max_bad_steps",
-    "attn", "fused_qkv", "register_tokens", "fused_mlp", "stem",
+    "attn", "fused_qkv", "register_tokens", "fused_mlp", "stem", "dp",
+    "global_batch",
 })
 # Values of the ported fields that this slice supports.
 PORTED_ARCHS = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
@@ -742,6 +745,9 @@ PORTED_ARCHS = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
 PORTED_OPTIMIZERS = ("sgd", "adamw")
 PORTED_DATASETS = ("synthetic",)
 BACKENDS = ("gpu", "cpu")
+# The reference's operator values (``--backend=nccl``, imagenet.sh:26),
+# as the JAX package's ``cluster.initialize`` maps them.
+BACKEND_ALIASES = {"nccl": "gpu", "gloo": "cpu"}
 
 
 def _norm(value):
@@ -789,6 +795,8 @@ def check_ported(cfg: Config) -> None:
             raise ValueError(
                 f"--{field} {value} is not yet ported to imagent_tpu_torch "
                 f"(this slice supports {', '.join(allowed)})")
-    if cfg.backend not in BACKENDS:
-        raise ValueError(f"--backend must be one of {'|'.join(BACKENDS)}, "
-                         f"got {cfg.backend!r}")
+    if cfg.backend not in BACKENDS + tuple(BACKEND_ALIASES):
+        raise ValueError(
+            f"--backend must be one of "
+            f"{'|'.join(BACKENDS + tuple(BACKEND_ALIASES))}, "
+            f"got {cfg.backend!r}")

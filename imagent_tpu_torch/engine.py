@@ -2,15 +2,23 @@
 summary (the main-path half of ``imagent_tpu/engine.py``, ported to
 PyTorch).
 
-One process on one device: the ResNet, ViT and ConvNeXt families
-through the synthetic loader, train and eval steps from ``train.py``
-(which put the model in train or eval mode themselves, so BatchNorm
-normalises by batch statistics in training and by its running ones in
-``evaluate``), best/last checkpoints (BatchNorm's running statistics
-included: a rollback or ``--resume`` restores them; BEST only when top-1
-strictly improves on the best so far, which starts at 0, as in the JAX
-engine, so a run whose top-1 stays 0 writes none), TensorBoard scalars
-on the master. Host-sync discipline
+One process per device, synchronous data parallelism across a Slurm
+world (``cluster.initialize`` forms the group; the steps reduce over
+it): the ResNet, ViT and ConvNeXt families through the synthetic loader
+(rank ``r`` of ``W`` takes rows ``r::W`` of each global batch of
+``batch_size x W x grad_accum``, or of ``--global-batch``, which fixes
+the batch and derives ``grad_accum``), train and eval steps from
+``train.py`` (which put the model in train or eval mode themselves, so
+BatchNorm normalises by batch statistics in training and by its running
+ones in ``evaluate``), best/last checkpoints written by rank 0 while the
+other ranks wait at a barrier (BatchNorm's running statistics included:
+every rank restores them on a rollback or ``--resume``; BEST only when
+top-1 strictly improves on the best so far, which starts at 0, as in the
+JAX engine, so a run whose top-1 stays 0 writes none), epoch summaries
+and TensorBoard scalars on rank 0. Every decision that must agree across
+ranks (BEST, rollback) is taken from the reduced metric vectors, which
+are the same on every rank, so it costs no collective of its own.
+Host-sync discipline
 follows the JAX engine: steps are dispatched asynchronously and the
 per-step metric vectors are read ``_GUARD_LAG`` steps behind the dispatch
 (``_LaggedMetrics``), so the host reads only vectors whose step has
@@ -190,6 +198,16 @@ def _validate(cfg: Config) -> None:
     check_ported(cfg)
     if cfg.grad_accum < 1:
         raise ValueError("--grad-accum must be >= 1")
+    if cfg.dp < 0:
+        raise ValueError("--dp must be >= 0 (0 = unset)")
+    if cfg.global_batch < 0:
+        raise ValueError("--global-batch must be >= 0 (0 = "
+                         "batch_size x dp x grad_accum)")
+    if cfg.global_batch and cfg.grad_accum > 1:
+        raise ValueError(
+            "--grad-accum is DERIVED under the --global-batch contract "
+            "(global_batch / (batch_size x dp)); drop --grad-accum, or "
+            "drop --global-batch to size the global batch from it")
     if cfg.batch_size < 1:
         raise ValueError("--batch-size must be >= 1")
     if cfg.prefetch_depth < 1:
@@ -200,27 +218,55 @@ def _validate(cfg: Config) -> None:
         raise ValueError("--eval-every must be >= 1")
 
 
+def batch_geometry(cfg: Config, world: int) -> tuple[int, int]:
+    """``(global_batch, grad_accum)`` at ``world`` data-parallel ranks:
+    ``batch_size x world x grad_accum``, or under ``--global-batch`` that
+    batch, with ``grad_accum = global_batch / (batch_size x world)``."""
+    if cfg.dp and cfg.dp != world:
+        raise ValueError(
+            f"--dp {cfg.dp} does not match the world: {world} process(es), "
+            "one per device. Fix the world size or --dp — silent "
+            "resharding is refused.")
+    if not cfg.global_batch:
+        return cfg.batch_size * world * cfg.grad_accum, cfg.grad_accum
+    denom = cfg.batch_size * world
+    if cfg.global_batch % denom:
+        raise ValueError(
+            f"--global-batch {cfg.global_batch} is not divisible by "
+            f"batch_size x data_parallel = {cfg.batch_size} x {world} = "
+            f"{denom} at this world size. Pick a global batch divisible "
+            "at every world size the job may run at (or adjust "
+            "--batch-size).")
+    return cfg.global_batch, cfg.global_batch // denom
+
+
 def run(cfg: Config) -> dict:
     """Full training run. Returns the final summary dict."""
     _validate(cfg)
-    senv, device = cluster.initialize(cfg.backend)
-    print(cluster.rank_banner(senv, device), flush=True)
-    is_master = True
-    accum = cfg.grad_accum
-    # Data-parallel degree 1: each step takes ``accum`` micro-batches of
-    # --batch-size (the JAX engine's batch_size x dp x grad_accum).
-    global_batch = cfg.batch_size * accum
-    print(f"device {device} global_batch {global_batch}"
-          + (f" (grad_accum {accum})" if accum > 1 else ""), flush=True)
-    print(skipped_line(), flush=True)
-
-    train_loader, val_loader = make_loaders(cfg, 0, 1, global_batch)
+    senv, device, group = cluster.initialize(cfg.backend)
     try:
-        return _run(cfg, device, is_master, global_batch, train_loader,
-                    val_loader)
+        print(cluster.rank_banner(senv, device, group), flush=True)
+        rank, world = ((senv.global_rank, senv.world_size)
+                       if group is not None else (0, 1))
+        is_master = rank == 0
+        global_batch, accum = batch_geometry(cfg, world)
+        if is_master:
+            print(f"device {device} data_parallel {world} global_batch "
+                  f"{global_batch}"
+                  + (f" (grad_accum {accum})" if accum > 1 else "")
+                  + (" [fixed --global-batch contract]"
+                     if cfg.global_batch else ""), flush=True)
+            print(skipped_line(), flush=True)
+        train_loader, val_loader = make_loaders(cfg, rank, world,
+                                                global_batch)
+        try:
+            return _run(cfg, device, group, is_master, world, global_batch,
+                        accum, train_loader, val_loader)
+        finally:
+            train_loader.close()
+            val_loader.close()
     finally:
-        train_loader.close()
-        val_loader.close()
+        cluster.destroy(group)
 
 
 def _fused_mlp_plan_line(cfg: Config, device) -> str | None:
@@ -251,8 +297,8 @@ def _model_overrides(cfg: Config) -> dict:
             "register_tokens": cfg.register_tokens}
 
 
-def _run(cfg, device, is_master, global_batch, train_loader,
-         val_loader) -> dict:
+def _run(cfg, device, group, is_master, world, global_batch, accum,
+         train_loader, val_loader) -> dict:
     plan = _fused_mlp_plan_line(cfg, device)
     if plan and is_master:
         print(plan, flush=True)
@@ -265,24 +311,33 @@ def _run(cfg, device, is_master, global_batch, train_loader,
     state = create_train_state(model, optimizer)
     train_step = make_train_step(
         optimizer, cfg.mean, cfg.std, label_smoothing=cfg.label_smoothing,
-        grad_accum=cfg.grad_accum, health_stats=cfg.health_stats)
-    eval_step = make_eval_step(cfg.mean, cfg.std)
+        grad_accum=accum, health_stats=cfg.health_stats, group=group)
+    eval_step = make_eval_step(cfg.mean, cfg.std, group=group)
 
     start_epoch = 0
     best_top1, best_top5, best_epoch = 0.0, 0.0, -1
     if cfg.resume:
         meta = ckpt_lib.restore(cfg.ckpt_dir, ckpt_lib.LAST, state)
         if meta is not None:
+            recorded = int(meta.get("global_batch", 0))
+            if cfg.global_batch and recorded and recorded != global_batch:
+                raise ValueError(
+                    f"--global-batch {global_batch} does not match the "
+                    f"checkpoint's recorded global batch {recorded} — the "
+                    "fixed-batch contract pins the optimization "
+                    "trajectory; resuming with a different value would "
+                    "silently change it")
             start_epoch = int(meta["epoch"]) + 1
             best_top1 = float(meta.get("best_top1", 0.0))
             best_top5 = float(meta.get("best_top5", 0.0))
             best_epoch = int(meta.get("best_epoch", -1))
-            print(f"resumed from epoch {start_epoch}", flush=True)
-        else:
+            if is_master:
+                print(f"resumed from epoch {start_epoch}", flush=True)
+        elif is_master:
             print(f"--resume: no checkpoint under {cfg.ckpt_dir}; "
                   "starting fresh", flush=True)
-    topo_meta = {"global_batch": global_batch, "process_count": 1,
-                 "seed": cfg.seed, "arch": cfg.arch}
+    topo_meta = {"global_batch": global_batch, "process_count": world,
+                 "data_parallel": world, "seed": cfg.seed, "arch": cfg.arch}
 
     logger = TrainLogger(cfg.log_dir, is_master)
     run_t0 = time.time()
@@ -307,18 +362,21 @@ def _run(cfg, device, is_master, global_batch, train_loader,
                         "up (check data / lr / bf16 ranges)")
                 meta = ckpt_lib.restore(cfg.ckpt_dir, ckpt_lib.LAST, state)
                 if meta is None:
-                    print(f"WARNING: {cfg.max_bad_steps} consecutive "
-                          f"non-finite steps in epoch {epoch + 1} and no "
-                          "checkpoint to roll back to (--save-model "
-                          "off?). State is unpoisoned (updates were "
-                          "skipped in the step); abandoning the rest of "
-                          "this epoch", flush=True)
+                    if is_master:
+                        print(f"WARNING: {cfg.max_bad_steps} consecutive "
+                              f"non-finite steps in epoch {epoch + 1} and "
+                              "no checkpoint to roll back to "
+                              "(--save-model off?). State is unpoisoned "
+                              "(updates were skipped in the step); "
+                              "abandoning the rest of this epoch",
+                              flush=True)
                     epoch += 1
                     continue
                 epoch = int(meta["epoch"]) + 1
-                print(f"ROLLBACK {rollback_streak}/{_MAX_ROLLBACKS}: "
-                      f"restored checkpoint '{ckpt_lib.LAST}', replaying "
-                      f"from epoch {epoch + 1}", flush=True)
+                if is_master:
+                    print(f"ROLLBACK {rollback_streak}/{_MAX_ROLLBACKS}: "
+                          f"restored checkpoint '{ckpt_lib.LAST}', "
+                          f"replaying from epoch {epoch + 1}", flush=True)
                 continue
             rollback_streak = 0
             did_eval = ((epoch + 1) % cfg.eval_every == 0
@@ -330,16 +388,20 @@ def _run(cfg, device, is_master, global_batch, train_loader,
                 if val_m["top1"] > best_top1:
                     best_top1, best_top5, best_epoch = (
                         val_m["top1"], val_m["top5"], epoch)
-                    if cfg.save_model:
+                    if cfg.save_model and is_master:
                         ckpt_lib.save(cfg.ckpt_dir, ckpt_lib.BEST, state, {
                             "epoch": epoch, "best_top1": best_top1,
                             "best_top5": best_top5,
                             "best_epoch": best_epoch, **topo_meta})
             if cfg.save_model:
-                ckpt_lib.save(cfg.ckpt_dir, ckpt_lib.LAST, state, {
-                    "epoch": epoch, "best_top1": best_top1,
-                    "best_top5": best_top5, "best_epoch": best_epoch,
-                    **topo_meta})
+                if is_master:
+                    ckpt_lib.save(cfg.ckpt_dir, ckpt_lib.LAST, state, {
+                        "epoch": epoch, "best_top1": best_top1,
+                        "best_top5": best_top5, "best_epoch": best_epoch,
+                        **topo_meta})
+                # No rank reads a checkpoint (a rollback) before rank 0
+                # has written it whole.
+                cluster.barrier(group)
             if is_master and train_m.get("bad_steps"):
                 print(f"  epoch {epoch + 1}: {train_m['bad_steps']} "
                       "non-finite step(s) skipped", flush=True)

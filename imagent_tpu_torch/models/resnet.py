@@ -50,7 +50,6 @@ from imagent_tpu_torch.models.vit import lecun_normal_
 # Flax's convention: running = m * running + (1 - m) * batch.
 _BN_MOMENTUM = 0.9
 _BN_EPS = 1e-5
-_NUM_FILTERS = 64  # the stem's width; stage i has 64 * 2**i filters
 
 # Per-arch structure: (stage_sizes, bottleneck?, groups, base_width), a
 # copy of the JAX package's table.
@@ -196,11 +195,13 @@ class ResNet(nn.Module):
     type (``torch.bfloat16`` under ``--bf16``); parameters are fp32.
     ``stem`` is ``v1`` (7x7/s2 conv + 3x3/s2 max-pool) or ``s2d``
     (space-to-depth to 12 channels, then a 4x4/s1 conv padded
-    ((2, 1), (2, 1)), the exact receptive field of the 7x7/s2 pad 3)."""
+    ((2, 1), (2, 1)), the exact receptive field of the 7x7/s2 pad 3).
+    ``num_filters`` is the stem's width; stage i has ``num_filters *
+    2**i`` filters (the JAX model's field; the published archs use 64)."""
 
     def __init__(self, stage_sizes, bottleneck: bool, num_classes: int = 1000,
                  groups: int = 1, base_width: int = 64, dtype=torch.float32,
-                 stem: str = "v1"):
+                 stem: str = "v1", num_filters: int = 64):
         super().__init__()
         if stem not in ("v1", "s2d"):
             raise ValueError(f"unknown stem {stem!r}; 'v1' or 's2d'")
@@ -208,14 +209,14 @@ class ResNet(nn.Module):
         self.dtype = dtype
         self.stem = stem
         if stem == "s2d":
-            self.conv1 = _conv(12, _NUM_FILTERS, 4, padding=0)
+            self.conv1 = _conv(12, num_filters, 4, padding=0)
         else:
-            self.conv1 = _conv(3, _NUM_FILTERS, 7, 2)
-        self.bn1 = BatchNorm(_NUM_FILTERS)
+            self.conv1 = _conv(3, num_filters, 7, 2)
+        self.bn1 = BatchNorm(num_filters)
         block_cls = Bottleneck if bottleneck else BasicBlock
-        cin = _NUM_FILTERS
+        cin = num_filters
         for i, n_blocks in enumerate(self.stage_sizes):
-            filters = _NUM_FILTERS * 2 ** i
+            filters = num_filters * 2 ** i
             for j in range(n_blocks):
                 stride = 2 if i > 0 and j == 0 else 1
                 setattr(self, f"layer{i + 1}_block{j}",

@@ -1,5 +1,5 @@
-"""Train and eval steps (PyTorch port of ``imagent_tpu/train.py``, data
-parallel degree 1).
+"""Train and eval steps (PyTorch port of ``imagent_tpu/train.py``), one
+process per data-parallel replica.
 
 The step keeps the JAX step's contract:
 
@@ -22,7 +22,18 @@ The step keeps the JAX step's contract:
   the micro-batches in order), the eval step in eval mode (the running
   statistics), as the JAX step's ``train=True``/``False``;
 * the step returns ``[loss_sum, top1, top5, n]`` then ``HEALTH_FIELDS``
-  when ``health_stats`` is on.
+  when ``health_stats`` is on;
+* across a process group (``group``; None for one process) the train
+  step makes exactly two collectives whatever ``grad_accum`` is: one
+  ``pmean`` of the gradients and BatchNorm's running statistics after
+  the micro-batches (the JAX step's ``pmean_tree(grads)`` and
+  ``pmean_tree(new_bs)``: each replica normalises by its own batch
+  statistics, the stored running ones are the replicas' mean), then one
+  ``psum`` of ``[local metrics, bad]`` from which every rank takes the
+  same ``ok`` (the summed ``bad`` is 0) and the summed metrics (JAX's
+  ``psum`` of ``bad`` and of the guarded vector, fused). The eval step
+  makes one, the ``psum`` of its masked vector. The health stats need
+  none: the gradients are reduced and the parameters replicated.
 
 State is updated in place (parameters with ``copy_``, optimizer slots
 replaced) instead of built anew as JAX does: the old and new trees never
@@ -38,6 +49,7 @@ import torch
 from torch import nn
 
 from imagent_tpu_torch.ops.cross_entropy import softmax_cross_entropy
+from imagent_tpu_torch.parallel import collectives
 from imagent_tpu_torch.utils.metrics import topk_correct, topk_rank
 
 # Health scalars appended past the [loss_sum, top1, top5, n] head when
@@ -227,11 +239,24 @@ def _accumulate(model, params, images, labels, label_smoothing,
     return {n: g / grad_accum for n, g in grads_sum.items()}, metrics
 
 
+def _pmean_grads_and_buffers(grads: dict, buffers: dict, group) -> dict:
+    """One ``pmean`` over the gradients and the buffers (BatchNorm's
+    running statistics, written back in place); returns the gradients."""
+    if group is None:
+        return grads
+    reduced = collectives.pmean([*grads.values(), *buffers.values()], group)
+    for b, r in zip(buffers.values(), reduced[len(grads):]):
+        b.copy_(r)
+    return dict(zip(grads, reduced[:len(grads)]))
+
+
 def make_train_step(optimizer, mean, std, label_smoothing: float = 0.0,
-                    grad_accum: int = 1,
-                    health_stats: bool = False) -> Callable:
+                    grad_accum: int = 1, health_stats: bool = False,
+                    group=None) -> Callable:
     """``step(state, images, labels, lr) -> (state, metrics)``. ``lr`` is
-    a device fp32 scalar (placed once per epoch by the engine)."""
+    a device fp32 scalar (placed once per epoch by the engine). ``group``
+    is the process group of the data-parallel replicas, None for one
+    process."""
     prep = make_input_prep(mean, std)
 
     def step(state: TrainState, images, labels, lr):
@@ -245,13 +270,20 @@ def make_train_step(optimizer, mean, std, label_smoothing: float = 0.0,
         grads, local = _accumulate(state.model, params, prep(images), labels,
                                    label_smoothing, grad_accum)
         with torch.no_grad():
+            # The reduce waits for the whole backward pass; overlapping
+            # it with the backward (DDP's gradient buckets) is left to
+            # later performance work.
+            grads = _pmean_grads_and_buffers(grads, buffers, group)
             gnorm2 = _sq_sum(grads.values())
-            ok = torch.logical_not(_nonfinite_local(gnorm2, local))
+            bad = _nonfinite_local(gnorm2, local).to(local.dtype)
+            summed, bad_sum = collectives.psum([local, bad.reshape(1)],
+                                               group)
+            ok = bad_sum[0] == 0
             updates, new_opt = optimizer.update(grads, state.opt_state,
                                                 params)
             new_params = {n: p + (-lr * updates[n])
                           for n, p in params.items()}
-            metrics = torch.where(ok, local, torch.zeros_like(local))
+            metrics = torch.where(ok, summed, torch.zeros_like(summed))
             if health_stats:
                 metrics = torch.cat([metrics, _health_stats(
                     gnorm2, params, new_params)])
@@ -266,14 +298,16 @@ def make_train_step(optimizer, mean, std, label_smoothing: float = 0.0,
     return step
 
 
-def make_eval_step(mean, std) -> Callable:
+def make_eval_step(mean, std, group=None) -> Callable:
     """``eval_step(state, images, labels, mask) -> [loss_sum, top1, top5,
-    n]`` over the valid rows."""
+    n]`` over the valid rows of every rank of ``group`` (None: this
+    process's)."""
     prep = make_input_prep(mean, std)
 
     @torch.no_grad()
     def eval_step(state: TrainState, images, labels, mask):
         state.model.eval()
-        return masked_eval_metrics(state.model(prep(images)), labels, mask)
+        local = masked_eval_metrics(state.model(prep(images)), labels, mask)
+        return collectives.psum([local], group)[0]
 
     return eval_step

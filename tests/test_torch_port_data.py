@@ -8,6 +8,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from mp_launch import free_port
 
 from imagent_tpu import cluster as jax_cluster
 from imagent_tpu import schedule as jax_schedule
@@ -101,12 +102,27 @@ def test_slurm_parsing_matches_jax():
     for nodes in ("n[1,3,5-7]b", "a01,b[09-10]"):
         assert (cluster.expand_nodelist(nodes)
                 == jax_cluster.expand_nodelist(nodes))
-    with pytest.raises(ValueError, match="not yet ported"):
-        cluster.initialize("cpu", env)
-    one = {**env, "SLURM_NTASKS": "1", "SLURM_JOB_NUM_NODES": "1"}
-    senv, device = cluster.initialize("cpu", one)
-    assert device.type == "cpu"
-    assert "coordinator ener021" in cluster.rank_banner(senv, device)
+    # The JAX package's refusal of a port that is not a number, before
+    # any group is formed.
+    with pytest.raises(ValueError, match="' x' is not a port number"):
+        cluster.initialize("cpu", {**env, "IMAGENT_COORDINATOR_PORT": " x"})
+    # A Slurm world of one forms its group too (gloo on the CPU), at the
+    # nodelist's first host; "gloo" is the reference's name for cpu.
+    one = {**env, "SLURM_NTASKS": "1", "SLURM_JOB_NUM_NODES": "1",
+           "SLURM_PROCID": "0", "SLURM_NODEID": "0",
+           "SLURM_JOB_NODELIST": "127.0.0.1",
+           "IMAGENT_COORDINATOR_PORT": str(free_port())}
+    senv, device, group = cluster.initialize("gloo", one)
+    try:
+        assert device.type == "cpu" and group is not None
+        assert torch.distributed.get_backend(group) == "gloo"
+        assert ("[rank 0/1] node 0/1 local_rank 0 coordinator 127.0.0.1 "
+                "world 1 over gloo device=cpu") in cluster.rank_banner(
+                    senv, device, group)
+    finally:
+        cluster.destroy(group)
+    assert not torch.distributed.is_initialized()
+    assert cluster.initialize("cpu", {})[2] is None
 
 
 def test_cpu_staging_keeps_the_uint8_wire():
