@@ -86,14 +86,29 @@ Phases, in order (any failure raises and exits non-zero):
     zeroed just before, must read exactly one ``pmean`` and one ``psum``
     per train step and one ``psum`` per eval step; the ``ddp`` line
     puts its img/s beside main path 3's;
-11. main path 4: ResNet-50 at 224 px, SGD, bf16, global batch 64, 3
+11. main path 6, the default command from JPEGs: a dataset written with
+    the port's ``texturegen`` (8 classes of 500x375 JPEGs at q90, 384
+    train and 128 val images, and the same files in 4 tar shards); the
+    decode paths the machine has must be the one ``_DECODE_PATH`` names
+    (the probe's answer), and each is timed alone, with no device, over
+    one train epoch at 448 px with ``--workers`` 10 and ``nproc``, and
+    over one batch at ``--workers`` 0 (one core), beside the PIL pool's
+    rate with the decode taken out (the results' way back alone); then
+    main path 3's command (``--workers`` 10, the default) on the image
+    folder and on the tar shards with ``--augment``, 2 epochs,
+    --save-model, each printing one decode line naming that path; then
+    the first train batch of both loaders byte-equal (with and without
+    ``--augment``), and native against PIL within ±1 where both exist.
+    The ``imagefolder`` line puts img/s, ``input_wait`` and peak memory
+    beside main path 3's;
+12. main path 4: ResNet-50 at 224 px, SGD, bf16, global batch 64, 3
     train steps and one eval batch per epoch, 2 epochs, --save-model.
     Every counter is zeroed before each ResNet path and must read 0
     after it: no model path calls the fused block, as in the JAX
     package. Every train path must write its last checkpoint; whether it
     wrote a best one (only on a top-1 above 0, as in the JAX engine) is
     reported;
-12. the model check: the 12 stride-1 identity bottlenecks of that trained
+13. the model check: the 12 stride-1 identity bottlenecks of that trained
     ResNet-50 (its last checkpoint, after 2 epochs), eval mode, fp32,
     each block's input captured on one
     synthetic batch, its BN folded (``fold_bn``) from the trained running
@@ -102,10 +117,10 @@ Phases, in order (any failure raises and exits non-zero):
     block's own fp32 output (``_MODEL_TOL``) and to its float64 output;
     then the same inputs and folded weights in bf16 against
     ``reference_bottleneck`` at 3e-2, again exactly 12 launches;
-13. a profile of each main path's train step (``torch.profiler``), and
+14. a profile of each main path's train step (``torch.profiler``), and
     of ConvNeXt-T with ``--fused-mlp off``: host step time, device time
     per kernel group, the device's idle share;
-14. the ``kernels`` JSON line, the card line, then the device JSON line
+15. the ``kernels`` JSON line, the card line, then the device JSON line
     last.
 
 Imports nothing of JAX or of the JAX package.
@@ -1183,14 +1198,37 @@ _ADAMW_224 = ["--optimizer", "adamw", "--lr", "1e-4", "--weight-decay",
               "0.05", "--image-size", "224"]
 
 
+@contextlib.contextmanager
+def _epoch_metrics():
+    """The train metrics dict of every epoch the engine runs in the body
+    (``host_blocked_s``: the step loop's wait on the staging queue, to
+    the millisecond; the epoch line prints it to 0.1 s)."""
+    from imagent_tpu_torch import engine
+    real = engine.train_one_epoch
+    seen = []
+
+    def recording(*args, **kwargs):
+        out = real(*args, **kwargs)
+        seen.append(dict(out[1], seconds=out[2]))
+        return out
+
+    engine.train_one_epoch = recording
+    try:
+        yield seen
+    finally:
+        engine.train_one_epoch = real
+
+
 def _train(arch, argv, counters, batch: int, epochs: int, steps: int,
-           workers: int = 4, keep_last: bool = False) -> dict:
+           workers: int = 4, keep_last: bool = False,
+           data: list | None = None) -> dict:
     """A main path through the CLI entry point with ``argv`` (the arch,
     optimizer and image-size flags; synthetic data for ``steps`` train
-    steps per epoch is added here), its launch counters (``counters``:
-    modules with ``LAUNCHES``/``reset_launches``) zeroed just before and
-    read just after; returns its numbers, and with ``keep_last`` also the
-    last checkpoint's model state_dict (on the card): the state after the
+    steps per epoch is added here unless ``data`` gives the dataset
+    flags), its launch counters (``counters``: modules with
+    ``LAUNCHES``/``reset_launches``) zeroed just before and read just
+    after; returns its numbers, and with ``keep_last`` also the last
+    checkpoint's model state_dict (on the card): the state after the
     run's last epoch. The last checkpoint must exist; a best one is
     written only when top-1 improves on 0 (as in the JAX engine), which
     random weights over 1000 classes need not do, so whether it exists
@@ -1198,10 +1236,12 @@ def _train(arch, argv, counters, batch: int, epochs: int, steps: int,
     import torch
     from imagent_tpu_torch.__main__ import main
     last_state = None
+    if data is None:
+        data = ["--dataset", "synthetic",
+                "--synthetic-size", str(batch * steps)]
     with tempfile.TemporaryDirectory() as tmp:
-        argv = [*argv, "--num-classes", "1000", "--dataset", "synthetic",
+        argv = [*argv, "--num-classes", "1000", *data,
                 "--batch-size", str(batch),
-                "--synthetic-size", str(batch * steps),
                 "--epochs", str(epochs), "--workers", str(workers),
                 "--log-every", "1", "--seed", "0", "--save-model",
                 "--ckpt-dir", os.path.join(tmp, "ckpt"),
@@ -1212,7 +1252,7 @@ def _train(arch, argv, counters, batch: int, epochs: int, steps: int,
         for mod in counters:
             mod.reset_launches()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(tee):
+        with contextlib.redirect_stdout(tee), _epoch_metrics() as epoch_m:
             rc = main(argv)
         wall = time.perf_counter() - t0
         launches = {k: v for mod in counters for k, v in mod.LAUNCHES.items()}
@@ -1245,7 +1285,10 @@ def _train(arch, argv, counters, batch: int, epochs: int, steps: int,
             "best_checkpoint": best,
             "input_wait_s": [float(t) for t in re.findall(
                 r"^Epoch \d+: .*? input_wait ([\d.]+)s", text, re.M)],
-            "plan": re.findall(r"^fused-mlp .*$", text, re.M)}
+            "train_input_wait_s": [m["host_blocked_s"] for m in epoch_m],
+            "train_epoch_s": [m["seconds"] for m in epoch_m],
+            "plan": re.findall(r"^fused-mlp .*$", text, re.M),
+            "decode": re.findall(r"^decode: .*$", text, re.M)}
     return (res, last_state) if keep_last else res
 
 
@@ -1295,12 +1338,13 @@ def _train_convnext_off(fm, batch: int, epochs: int, steps: int) -> dict:
 
 
 def _train_resnet(arch, argv, counters, batch: int, epochs: int,
-                  steps: int, workers: int, keep_last: bool = False):
+                  steps: int, workers: int, keep_last: bool = False,
+                  data: list | None = None):
     """A ResNet main path: no kernel of the port may launch (no model
     path calls the fused block, and ResNet runs no flash or fused-MLP
     kernel)."""
     out = _train(arch, argv, counters, batch, epochs, steps, workers,
-                 keep_last)
+                 keep_last, data)
     res = out[0] if keep_last else out
     if any(res["launches"].values()):
         raise AssertionError(f"{arch} main path launched port kernels: "
@@ -1470,6 +1514,239 @@ def _train_ddp(ports, resnet18, card, batch: int, epochs: int, steps: int,
             "local_rank_without_card_exit": rc, "step_check": check}
     print(json.dumps(line), flush=True)
     return res
+
+
+# Main path 6's dataset: ImageNet's most common geometry, 8 classes,
+# 3 train steps and one eval batch of 128 per epoch, 4 tar shards.
+_JPEG_W, _JPEG_H, _JPEG_Q = 500, 375, 90
+_JPEG_CLASSES, _JPEG_TRAIN, _JPEG_VAL, _JPEG_SHARDS = 8, 384, 128, 4
+# The decode path this machine gives the default command (the probe of
+# PERF.md §5: Pillow present; no libjpeg, libpng or libwebp headers, so
+# the native decoder cannot build). A change of machine that changes it
+# must change this line: the smoke accepts no silent switch.
+_DECODE_PATH = "pil"
+
+
+def _jpeg_dataset(root: str) -> dict:
+    """The image folder and its tar shards under ``root``, written with
+    the port's ``texturegen`` from one process per core."""
+    from imagent_tpu_torch.data.texturegen import (
+        generate_imagefolder, pack_tar_shards,
+    )
+    t0 = time.perf_counter()
+    folder = generate_imagefolder(
+        os.path.join(root, "folder"), n_classes=_JPEG_CLASSES,
+        train_per_class=_JPEG_TRAIN // _JPEG_CLASSES,
+        val_per_class=_JPEG_VAL // _JPEG_CLASSES, img=_JPEG_W,
+        quality=_JPEG_Q, height=_JPEG_H, workers=os.cpu_count())
+    tar = pack_tar_shards(folder, os.path.join(root, "tar"), _JPEG_SHARDS)
+    return {"folder": folder, "tar": tar,
+            "write_s": time.perf_counter() - t0}
+
+
+def _decode_machine() -> dict:
+    """What the decoders need from this machine: Pillow, g++ and the
+    image-library headers the native decoder includes, and the cores."""
+    try:
+        import PIL
+        pillow = PIL.__version__
+    except ImportError:
+        pillow = "absent"
+    try:
+        gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                             text=True, timeout=30).stdout.splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        gxx = "absent"
+    try:
+        with open("/sys/fs/cgroup/cpu.max") as f:
+            cpu_max = f.read().strip()
+    except OSError:
+        cpu_max = "unreadable"
+    return {"pillow": pillow, "g++": gxx, "nproc": os.cpu_count(),
+            "cgroup_cpu_max": cpu_max,
+            "headers": {h: os.path.exists(f"/usr/include/{h}")
+                        for h in ("jpeglib.h", "png.h", "webp/decode.h")}}
+
+
+def _decode_paths() -> dict:
+    """``{"native": why-not or None, "pil": why-not or None}``."""
+    from imagent_tpu_torch.data.imagefolder import pil_missing
+    from imagent_tpu_torch.native import loader as native
+    return {"native": None if native.available()
+            else native.unavailable_reason(), "pil": pil_missing()}
+
+
+def _decode_rates(folder: str, batch: int, size: int = 448) -> dict:
+    """Decode alone, no device: one train epoch of each decode path this
+    machine has, at ``--workers`` 10 (the default) and at ``nproc``; the
+    second of two epochs is timed (the first starts the decode pool).
+    Beside them, one core's rate: the first batch at ``--workers`` 0
+    (in-process, serial)."""
+    from imagent_tpu_torch.config import Config
+    from imagent_tpu_torch.data.imagefolder import ImageFolderLoader
+    have = _decode_paths()
+    rates = {}
+    for path, why in have.items():
+        if why is not None:
+            continue
+        for workers in sorted({0, 10, os.cpu_count()}):
+            cfg = Config(data_root=folder, image_size=size, workers=workers,
+                         native_io=path == "native")
+            loader = ImageFolderLoader(cfg, 0, 1, batch, "train")
+            try:
+                if not loader.decode_path.startswith(path):
+                    raise AssertionError(f"asked for {path}, got "
+                                         f"{loader.decode_path}")
+                for epoch in range(1 if workers == 0 else 2):
+                    t0 = time.perf_counter()
+                    if workers == 0:
+                        n = len(next(iter(loader.epoch(epoch))).labels)
+                    else:
+                        n = sum(len(b.labels) for b in loader.epoch(epoch))
+                    secs = time.perf_counter() - t0
+            finally:
+                loader.close()
+            rates[f"{path}_workers{workers}"] = {
+                "img_per_s": n / secs, "epoch_s": secs, "images": n,
+                "decode_path": loader.decode_path}
+    return rates
+
+
+def _blank_image(size: int, i: int):
+    """A decode worker's result with no decode: one uint8 image."""
+    import numpy as np
+    return np.full((size, size, 3), i % 251, np.uint8), True
+
+
+def _pool_transfer_ceiling(batch: int, size: int = 448,
+                           batches: int = 3) -> dict:
+    """The PIL path's pool with the decode taken out: ``nproc`` spawn
+    workers return ready uint8 images (``_blank_image``) as
+    ``_decode_pil_batch`` has them returned (``starmap``, chunks of 8,
+    then one ``np.stack``), so the rate is that of the results' way back
+    through the pool's one result pipe."""
+    import multiprocessing as mp
+
+    import numpy as np
+    workers = os.cpu_count()
+    with mp.get_context("spawn").Pool(workers) as pool:
+        pool.starmap(_blank_image, [(size, i) for i in range(workers)])
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            out = pool.starmap(_blank_image,
+                               [(size, i) for i in range(batch)],
+                               chunksize=8)
+            np.stack([img for img, _ in out])
+        secs = time.perf_counter() - t0
+    n = batch * batches
+    return {"workers": workers, "img_per_s": n / secs,
+            "mb_per_s": n * size * size * 3 / secs / 1e6}
+
+
+def _first_batches(folder: str, tar: str, batch: int,
+                   size: int = 448) -> dict:
+    """The first train batch of the image-folder and the tar loader
+    (byte-equal, with and without ``--augment``), and native against PIL
+    on the image-folder one where both decoders exist (±1 per pixel: at
+    448 px from 375 rows libjpeg does not scale by DCT)."""
+    import numpy as np
+    from imagent_tpu_torch.config import Config
+    from imagent_tpu_torch.data.imagefolder import ImageFolderLoader
+    from imagent_tpu_torch.data.tarshards import TarShardLoader
+    have = _decode_paths()
+    path = next(p for p in ("native", "pil") if have[p] is None)
+
+    def first(cls, root, decoder, augment=False):
+        cfg = Config(data_root=root, image_size=size, workers=os.cpu_count(),
+                     native_io=decoder == "native", augment=augment)
+        loader = cls(cfg, 0, 1, batch, "train")
+        try:
+            return next(iter(loader.epoch(0)))
+        finally:
+            loader.close()
+
+    res = {"path": path}
+    for augment in (False, True):
+        a = first(ImageFolderLoader, folder, path, augment)
+        b = first(TarShardLoader, tar, path, augment)
+        for name in ("images", "labels", "mask"):
+            if not np.array_equal(getattr(a, name), getattr(b, name)):
+                raise AssertionError(f"first train batch (augment "
+                                     f"{augment}): image folder and tar "
+                                     f"differ in {name}")
+        if not augment:
+            plain = a
+    res["folder_equals_tar"] = True
+    for name, why in have.items():
+        if why is not None:
+            res[name] = f"absent ({why})"
+    if path == "native" and have["pil"] is None:
+        pil = first(ImageFolderLoader, folder, "pil")
+        diff = np.abs(plain.images.astype(np.int16)
+                      - pil.images.astype(np.int16))
+        res["native_vs_pil_max_abs"] = int(diff.max())
+        if diff.max() > 1:
+            raise AssertionError(f"native vs PIL: max |diff| {diff.max()} "
+                                 "> 1 on the first batch")
+    return res
+
+
+def _train_jpeg(ports, resnet18, card, batch: int, epochs: int,
+                steps: int) -> tuple:
+    """Main path 6: the default command from JPEGs, first from an image
+    folder, then from its tar shards with ``--augment``, each under main
+    path 3's gates (finite losses, the last checkpoint, no port kernel
+    launched) and with its decode line; the ``imagefolder`` line."""
+    with tempfile.TemporaryDirectory() as tmp:
+        data = _jpeg_dataset(tmp)
+        have = _decode_paths()
+        default = "native" if have["native"] is None else "pil"
+        if default != _DECODE_PATH or have[default] is not None:
+            raise AssertionError(f"the default command would decode with "
+                                 f"{default} ({have}); this machine's "
+                                 f"recorded path is {_DECODE_PATH}")
+        rates = _decode_rates(data["folder"], batch)
+        rates["pool_transfer_only"] = _pool_transfer_ceiling(batch)
+        runs = {}
+        for name, flags in (
+                ("imagefolder", ["--dataset", "imagefolder", "--data-root",
+                                 data["folder"]]),
+                ("tar_augment", ["--dataset", "tar", "--data-root",
+                                 data["tar"], "--augment"])):
+            res = _train_resnet(f"resnet18 (default, {name})", [], ports,
+                                batch, epochs, steps, workers=10,
+                                data=flags)
+            if len(res["decode"]) != 1 or not res["decode"][0].startswith(
+                    f"decode: {_DECODE_PATH}"):
+                raise AssertionError(f"{name}: decode lines "
+                                     f"{res['decode']}, expected one "
+                                     f"naming {_DECODE_PATH}")
+            runs[name] = res
+        batches = _first_batches(data["folder"], data["tar"], batch)
+    line = {"phase": "imagefolder", "card": card,
+            "machine": _decode_machine(),
+            "dataset": {"classes": _JPEG_CLASSES, "train": _JPEG_TRAIN,
+                        "val": _JPEG_VAL, "geometry": f"{_JPEG_W}x{_JPEG_H}",
+                        "jpeg_quality": _JPEG_Q, "tar_shards": _JPEG_SHARDS,
+                        "write_s": data["write_s"]},
+            "decode_line": runs["imagefolder"]["decode"][0],
+            "decode_paths": {p: why or "present" for p, why in have.items()},
+            "decode_alone": rates,
+            "img_per_s_main_path_3": resnet18["img_per_s_last_epoch"],
+            "peak_mem_gib_main_path_3": resnet18["peak_mem_bytes"] / 2**30,
+            "batch_checks": batches}
+    for name, res in runs.items():
+        line[name] = {"img_per_s": res["img_per_s_last_epoch"],
+                      "epoch_train_s": res["train_epoch_s"],
+                      "input_wait_s": res["train_input_wait_s"],
+                      "input_wait_share_last_epoch":
+                          res["train_input_wait_s"][-1]
+                          / res["train_epoch_s"][-1],
+                      "peak_mem_gib": res["peak_mem_bytes"] / 2**30,
+                      "launches": res["launches"], "losses": res["losses"],
+                      "last_checkpoint": res["last_checkpoint"]}
+    print(json.dumps(line), flush=True)
+    return runs["imagefolder"], runs["tar_augment"]
 
 
 _GROUPS = (  # kernel-name fragment -> group of the step breakdown
@@ -1824,13 +2101,18 @@ def main(argv=None) -> int:
     # Main path 5: the same command as a Slurm world of one over NCCL.
     ddp = _train_ddp(ports, resnet18, card, 128, epochs=2, steps=3,
                      workers=8)
+    # Main path 6: the default command from JPEGs (an image folder, then
+    # its tar shards with --augment), on the decode path this machine has.
+    jpeg_folder, jpeg_tar = _train_jpeg(ports, resnet18, card, 128,
+                                        epochs=2, steps=3)
     # Main path 4: bench.py:263's ResNet-50 cell, batch 256 cut to 64.
     resnet50, last50 = _train_resnet(
         "resnet50", ["--arch", "resnet50", "--image-size", "224"], ports,
         _BATCH, epochs=2, steps=3, workers=8, keep_last=True)
     block_check = _block_model_check(fb, last50, _BATCH)
     del last50
-    for res in (vit, convnext, convnext_off, resnet18, ddp, resnet50):
+    for res in (vit, convnext, convnext_off, resnet18, ddp, jpeg_folder,
+                jpeg_tar, resnet50):
         print(json.dumps({"phase": "train_summary", "arch": res["arch"],
                           "card": card,
                           "img_per_s": res["img_per_s_last_epoch"],
@@ -1844,7 +2126,8 @@ def main(argv=None) -> int:
     _profile("resnet50", {}, _BATCH, opt=sgd)
     rows = _kernel_rows(card, timing, main_errs, vit, fused, fused_errs,
                         convnext, block, block_errs, block_check,
-                        (resnet18, resnet50), block_regs)
+                        (resnet18, resnet50, jpeg_folder, jpeg_tar),
+                        block_regs)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

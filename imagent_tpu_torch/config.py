@@ -734,7 +734,7 @@ PORTED = frozenset({
     "prefetch_depth", "warmup_epochs", "label_smoothing", "grad_accum",
     "schedule", "eval_every", "log_every", "health_stats", "max_bad_steps",
     "attn", "fused_qkv", "register_tokens", "fused_mlp", "stem", "dp",
-    "global_batch",
+    "global_batch", "data_root", "augment", "transfer_dtype", "native_io",
 })
 # Values of the ported fields that this slice supports.
 PORTED_ARCHS = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
@@ -743,7 +743,7 @@ PORTED_ARCHS = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
                 "vit_debug", "convnext_tiny", "convnext_small",
                 "convnext_base", "convnext_large")
 PORTED_OPTIMIZERS = ("sgd", "adamw")
-PORTED_DATASETS = ("synthetic",)
+PORTED_DATASETS = ("synthetic", "imagefolder", "tar")
 BACKENDS = ("gpu", "cpu")
 # The reference's operator values (``--backend=nccl``, imagenet.sh:26),
 # as the JAX package's ``cluster.initialize`` maps them.

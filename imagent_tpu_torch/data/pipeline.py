@@ -9,9 +9,9 @@ permutation seeded by ``seed + epoch``, process ``p`` of ``P`` takes
 rows ``p::P``, train drops the global remainder, eval pads the tail
 batch and marks the padding in a uint8 ``mask``.
 
-This slice ports the synthetic loader only (``make_loaders``); the
-imagefolder and tar loaders are refused by ``config.check_ported``.
-numpy only, no torch.
+``make_loaders`` builds the synthetic, image-folder or tar-shard
+loaders. numpy only, no torch: spawned decode workers import this
+module.
 """
 
 from __future__ import annotations
@@ -26,12 +26,36 @@ from imagent_tpu_torch.config import Config
 @dataclasses.dataclass
 class Batch:
     """Host-local shard of one global batch: ``images`` NHWC on the raw
-    [0, 255] pixel scale (uint8), ``labels`` int32, ``mask`` uint8 0/1
-    (eval padding validity)."""
+    [0, 255] pixel scale in the wire dtype (``to_wire``), ``labels``
+    int32, ``mask`` uint8 0/1 (eval padding validity)."""
 
     images: np.ndarray
     labels: np.ndarray
     mask: np.ndarray  # uint8: 1 = real sample, 0 = eval padding
+
+
+WIRE_DTYPES = ("uint8", "bf16", "float32")
+
+
+def to_wire(images_u8: np.ndarray, transfer_dtype: str) -> np.ndarray:
+    """Cast the canonical uint8 batch to the configured wire dtype: 1, 2
+    or 4 bytes per pixel, the values on the raw [0, 255] scale in every
+    case, so the in-step dequantize and normalize see identical fp32
+    values whichever dtype crossed the wire.
+
+    ``bf16`` travels as ``uint16`` bf16 bit patterns (numpy has no
+    bfloat16): every integer 0..255 is exact in bf16, so the top 16 bits
+    of its fp32 value are its bf16 value. ``data/prefetch.py`` views a
+    ``uint16`` image array as ``torch.bfloat16``."""
+    if transfer_dtype == "uint8":
+        return images_u8
+    if transfer_dtype == "bf16":
+        f32 = np.ascontiguousarray(images_u8, np.float32)
+        return (f32.view(np.uint32) >> 16).astype(np.uint16)
+    if transfer_dtype == "float32":
+        return images_u8.astype(np.float32)
+    raise ValueError(f"unknown --transfer-dtype {transfer_dtype!r}; "
+                     f"one of {'|'.join(WIRE_DTYPES)}")
 
 
 def pad_batch(images: np.ndarray, labels: np.ndarray,
@@ -50,12 +74,29 @@ def pad_batch(images: np.ndarray, labels: np.ndarray,
 
 def make_loaders(cfg: Config, process_index: int, process_count: int,
                  global_batch: int):
-    """``(train_loader, val_loader)`` for ``cfg.dataset``."""
-    if cfg.dataset != "synthetic":
-        raise ValueError(f"--dataset {cfg.dataset} is not yet ported to "
-                         "imagent_tpu_torch (this slice supports synthetic)")
-    from imagent_tpu_torch.data.synthetic import SyntheticLoader
-    return (SyntheticLoader(cfg, process_index, process_count,
-                            global_batch, train=True),
-            SyntheticLoader(cfg, process_index, process_count,
-                            global_batch, train=False))
+    """``(train_loader, val_loader)`` for ``cfg.dataset``: rank
+    ``process_index`` of ``process_count`` reads (and decodes) only its
+    own rows of each global batch."""
+    if cfg.dataset == "synthetic":
+        from imagent_tpu_torch.data.synthetic import SyntheticLoader
+        return (SyntheticLoader(cfg, process_index, process_count,
+                                global_batch, train=True),
+                SyntheticLoader(cfg, process_index, process_count,
+                                global_batch, train=False))
+    if cfg.dataset == "tar":
+        from imagent_tpu_torch.data.tarshards import TarShardLoader as Cls
+    elif cfg.dataset == "imagefolder":
+        from imagent_tpu_torch.data.imagefolder import (
+            ImageFolderLoader as Cls,
+        )
+    else:
+        raise ValueError(f"unknown --dataset {cfg.dataset!r}")
+    train = Cls(cfg, process_index, process_count, global_batch,
+                split="train")
+    try:
+        val = Cls(cfg, process_index, process_count, global_batch,
+                  split="val")
+    except BaseException:
+        train.close()
+        raise
+    return train, val

@@ -7,7 +7,8 @@ card on a side CUDA stream, recording an event. The consumer makes the
 compute stream wait on that event and marks the tensors as used there
 (``record_stream``), so the copy of batch N+1 overlaps step N and the
 caching allocator never reuses a buffer too early. On the CPU the
-arrays become tensors directly.
+arrays become tensors directly. A ``uint16`` image array is the bf16
+wire (``pipeline.to_wire``) and is viewed as ``torch.bfloat16``.
 
 ``PrefetchStats`` counts the consumer's time blocked on the staging
 queue and the host bytes staged, per epoch.
@@ -48,6 +49,8 @@ def _stage_batch(device: torch.device, batch, with_mask: bool,
         stats.bytes_staged += sum(a.nbytes for a in arrays)
         stats.batches += 1
     host = [torch.from_numpy(a) for a in arrays]
+    if host[0].dtype == torch.uint16:  # the bf16 wire: bf16 bit patterns
+        host[0] = host[0].view(torch.bfloat16)
     if device.type != "cuda":
         return tuple(host), None
     with torch.cuda.device(device), torch.cuda.stream(stream):

@@ -34,11 +34,17 @@ spawned generator workers import it cheaply.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Iterator
 
 import numpy as np
 
 PAD_ROW = -1  # sentinel: padded slot, contributes mask 0
+
+# Arm with a path prefix to record every produced batch's dataset rows
+# as <prefix>.<process_index>.jsonl (``trace_rows``).
+TRACE_ENV = "IMAGENT_SAMPLE_TRACE"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,3 +113,23 @@ def open_stream(key: StreamKey, epoch: int, start_step: int = 0,
         chunk = idx[start:start + rows]
         if len(chunk) == rows:
             yield start // rows, chunk
+
+
+def trace_rows(process_index: int, split: str, epoch: int, step: int,
+               rows: np.ndarray, world: int | None = None) -> None:
+    """Append one produced batch's dataset rows to the armed trace
+    file (no-op unless :data:`TRACE_ENV` is set — a falsy env check,
+    safe at per-batch cadence). The trace records PRODUCED batches; a
+    consumer killed mid-epoch may have decoded a few beyond its last
+    applied step, so readers truncate to the checkpoint's resume step.
+    ``world`` (the stream's process_count) tells records of different
+    world sizes apart."""
+    prefix = os.environ.get(TRACE_ENV)
+    if not prefix:
+        return
+    rec = {"split": split, "epoch": int(epoch), "step": int(step),
+           "rows": [int(r) for r in rows]}
+    if world is not None:
+        rec["world"] = int(world)
+    with open(f"{prefix}.{process_index}.jsonl", "a") as f:
+        f.write(json.dumps(rec) + "\n")

@@ -28,7 +28,7 @@ import numpy as np
 
 from imagent_tpu_torch.config import Config
 from imagent_tpu_torch.data import stream
-from imagent_tpu_torch.data.pipeline import Batch, pad_batch
+from imagent_tpu_torch.data.pipeline import Batch, pad_batch, to_wire
 
 
 def _quantize_u8(img: np.ndarray) -> np.ndarray:
@@ -125,7 +125,8 @@ class SyntheticLoader:
                     self._pool.starmap(_gen_one, args, chunksize=8))
             else:
                 images = np.stack([_gen_one(*a) for a in args])
-            yield pad_batch(images, labels, self.local_rows)
+            yield pad_batch(to_wire(images, cfg.transfer_dtype), labels,
+                            self.local_rows)
 
     def close(self):
         if self._pool is not None:

@@ -4,10 +4,12 @@ PyTorch).
 
 One process per device, synchronous data parallelism across a Slurm
 world (``cluster.initialize`` forms the group; the steps reduce over
-it): the ResNet, ViT and ConvNeXt families through the synthetic loader
-(rank ``r`` of ``W`` takes rows ``r::W`` of each global batch of
-``batch_size x W x grad_accum``, or of ``--global-batch``, which fixes
-the batch and derives ``grad_accum``), train and eval steps from
+it): the ResNet, ViT and ConvNeXt families through the synthetic,
+image-folder or tar-shard loader (the decode path, native or PIL, named
+on one start-up line; rank ``r`` of ``W`` takes rows ``r::W`` of each
+global batch of ``batch_size x W x grad_accum``, or of
+``--global-batch``, which fixes the batch and derives ``grad_accum``),
+train and eval steps from
 ``train.py`` (which put the model in train or eval mode themselves, so
 BatchNorm normalises by batch statistics in training and by its running
 ones in ``evaluate``), best/last checkpoints written by rank 0 while the
@@ -44,6 +46,7 @@ from imagent_tpu_torch import checkpoint as ckpt_lib
 from imagent_tpu_torch import cluster
 from imagent_tpu_torch.config import Config, check_ported, skipped_line
 from imagent_tpu_torch.data import make_loaders
+from imagent_tpu_torch.data.pipeline import WIRE_DTYPES
 from imagent_tpu_torch.data.prefetch import Prefetcher, PrefetchStats
 from imagent_tpu_torch.models import create_model
 from imagent_tpu_torch.resilience import exitcodes
@@ -216,6 +219,10 @@ def _validate(cfg: Config) -> None:
         raise ValueError("--workers must be >= 0 (0 = in-process)")
     if cfg.eval_every < 1:
         raise ValueError("--eval-every must be >= 1")
+    if cfg.transfer_dtype not in WIRE_DTYPES:
+        raise ValueError(f"--transfer-dtype must be one of "
+                         f"{'|'.join(WIRE_DTYPES)}, "
+                         f"got {cfg.transfer_dtype!r}")
 
 
 def batch_geometry(cfg: Config, world: int) -> tuple[int, int]:
@@ -259,6 +266,9 @@ def run(cfg: Config) -> dict:
             print(skipped_line(), flush=True)
         train_loader, val_loader = make_loaders(cfg, rank, world,
                                                 global_batch)
+        decode = getattr(train_loader, "decode_path", None)
+        if decode and is_master:
+            print(f"decode: {decode}", flush=True)
         try:
             return _run(cfg, device, group, is_master, world, global_batch,
                         accum, train_loader, val_loader)

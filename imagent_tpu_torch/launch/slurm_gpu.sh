@@ -17,7 +17,9 @@
 #
 # Usage: sbatch imagent_tpu_torch/launch/slurm_gpu.sh [flags...]; the
 # flags are appended to the ones below, and the last occurrence wins.
-# The port reads synthetic data only so far: pass --dataset synthetic.
+# Give the dataset with --data-root <root> (an image folder, or
+# --dataset tar for root/{train,val}/*.tar); each rank decodes only its
+# own rows, with --workers decode threads or processes.
 #
 #SBATCH --job-name=imagent_tpu_torch
 #SBATCH --nodes=2

@@ -52,9 +52,9 @@ def test_config_fields_flags_and_defaults_match_jax():
 
 @pytest.mark.parametrize("extra", [
     ["--arch", "resnet50", "--remat"], ["--fsdp"], ["--optimizer", "nadam"],
-    ["--dataset", "imagefolder"], ["--mixup", "0.2"], ["--remat"],
+    ["--decode-offload", "127.0.0.1:7707"], ["--mixup", "0.2"], ["--remat"],
     ["--backend", "tpu"], ["--no-telemetry"],
-    ["--arch", "convnext_tiny", "--remat"],
+    ["--arch", "convnext_tiny", "--remat"], ["--faults", "nan-grads:after=4"],
 ])
 def test_unported_flags_exit_78(tmp_path, capsys, extra):
     assert main(_cpu_args(tmp_path, *extra)) == 78
@@ -90,6 +90,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     code = ("import sys, imagent_tpu_torch.engine, imagent_tpu_torch.__main__,"
             " imagent_tpu_torch.models.convnext,"
             " imagent_tpu_torch.models.resnet,"
+            " imagent_tpu_torch.data.imagefolder,"
+            " imagent_tpu_torch.data.tarshards,"
+            " imagent_tpu_torch.data.texturegen,"
+            " imagent_tpu_torch.native.loader,"
             " imagent_tpu_torch.ops.fused_block,"
             " imagent_tpu_torch.ops.fused_mlp,"
             " imagent_tpu_torch.parallel.collectives;"
@@ -139,15 +143,18 @@ def test_convnext_fused_cpu_run_starts(tmp_path, capsys):
 
 
 def test_default_config_is_ported():
-    """The default command's arch (resnet18), image size, optimizer and
-    every other default pass the port's check; only the default dataset
-    (imagefolder, not yet ported) needs --dataset synthetic."""
+    """The untouched default ``Config`` passes the port's check: the
+    default command's arch (resnet18), image size, optimizer, its
+    imagefolder dataset with native decode, and every other default;
+    so do the tar dataset and the other wire dtypes."""
     cfg = Config()
-    assert (cfg.arch, cfg.image_size, cfg.optimizer) == ("resnet18", 448,
-                                                         "sgd")
-    check_ported(dataclasses.replace(cfg, dataset="synthetic"))
-    with pytest.raises(ValueError, match="--dataset imagefolder"):
-        check_ported(cfg)
+    assert (cfg.arch, cfg.image_size, cfg.optimizer, cfg.dataset,
+            cfg.native_io) == ("resnet18", 448, "sgd", "imagefolder", True)
+    check_ported(cfg)
+    for kw in ({"dataset": "tar", "augment": True},
+               {"transfer_dtype": "bf16", "native_io": False},
+               {"dataset": "synthetic", "transfer_dtype": "float32"}):
+        check_ported(dataclasses.replace(cfg, **kw))
 
 
 def test_default_resnet18_cpu_run_checkpoints_bn_buffers_and_resumes(
@@ -226,11 +233,10 @@ def test_startup_line_names_default_on_subsystems_not_run(tmp_path, capsys):
     from ``Config`` and ``PORTED``, and it refuses nothing."""
     on = {f.name for f in dataclasses.fields(JaxConfig)
           if getattr(JaxConfig(), f.name) is True} - PORTED
-    assert on == {"telemetry", "aot_steps", "async_ckpt", "native_io",
-                  "chipacct"}
+    assert on == {"telemetry", "aot_steps", "async_ckpt", "chipacct"}
     assert main(_cpu_args(tmp_path, "--epochs", "1")) == 0
     lines = [ln for ln in capsys.readouterr().out.splitlines()
              if ln.startswith("not run by this port")]
     assert lines == ["not run by this port (on by default in the JAX "
-                     "package): native_io, telemetry, aot_steps, "
-                     "async_ckpt, chipacct"]
+                     "package): telemetry, aot_steps, async_ckpt, "
+                     "chipacct"]

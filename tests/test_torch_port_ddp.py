@@ -10,7 +10,8 @@ package's ``shard_map`` step on a 2-device CPU mesh.
   ``resnet_params_from_jax``). Two SGD steps hold params, the running
   statistics (the replicas' mean, as the JAX step's ``pmean`` of
   ``batch_stats``) and metrics to JAX's, and the two ranks bitwise to
-  each other; a batch poisoned on rank 1 only is skipped on both ranks;
+  each other; a batch poisoned on rank 1 only is skipped on both ranks,
+  and so is a finite batch that only rank 1's local verdict calls bad;
   the eval step with a padded row on rank 1 gives JAX's ``psum``'d
   masked metrics; every train step makes two collectives whatever
   ``grad_accum`` is, and the eval step one.
@@ -140,6 +141,7 @@ def _worker(rank: int, port: int, io_dir: str) -> None:
 
     import torch.distributed as dist
 
+    from imagent_tpu_torch import train as train_mod
     from imagent_tpu_torch.models.resnet import ResNet
     from imagent_tpu_torch.parallel import collectives
     from imagent_tpu_torch.train import (
@@ -184,11 +186,27 @@ def _worker(rank: int, port: int, io_dir: str) -> None:
         accum_step(create_train_state(copy.deepcopy(model), opt),
                    *rows(*inp["batches"]["train"][0]), lr)
         calls["train_accum2"] = dict(collectives.CALLS)
+
+        # Only rank 1's local verdict says bad, on a batch whose loss and
+        # gradients stay finite: the summed verdict must skip the step
+        # on both ranks.
+        after_poison = copy.deepcopy(state.model.state_dict())
+        steps_done = int(state.step)
+        real_verdict = train_mod._nonfinite_local
+        if rank == 1:
+            train_mod._nonfinite_local = (
+                lambda gnorm2, m: torch.ones((), dtype=torch.bool))
+        try:
+            state, m = step(state, *rows(*inp["batches"]["train"][0]), lr)
+        finally:
+            train_mod._nonfinite_local = real_verdict
+        verdict = {"metrics": m.clone(),
+                   "after": copy.deepcopy(state.model.state_dict())}
     finally:
         dist.destroy_process_group()
     torch.save({"metrics": metrics, "after_two": after_two,
-                "after_poison": state.model.state_dict(),
-                "step": int(state.step), "eval": evaluated, "calls": calls,
+                "after_poison": after_poison, "verdict": verdict,
+                "step": steps_done, "eval": evaluated, "calls": calls,
                 "jax_imported": sorted(m for m in sys.modules
                                        if m.split(".")[0] in ("jax", "flax",
                                                               "imagent_tpu"))},
@@ -397,6 +415,18 @@ def test_batch_poisoned_on_one_rank_is_skipped_on_both(runs):
             np.testing.assert_allclose(r["after_poison"][name].numpy(),
                                        want[name].numpy(), rtol=STEP_TOL,
                                        atol=STEP_TOL, err_msg=name)
+
+
+def test_one_rank_local_verdict_skips_the_step_on_both(runs):
+    """The step takes ``ok`` from the verdicts summed over the ranks: a
+    step only rank 1 judges bad (its gradients finite, so nothing
+    non-finite reaches rank 0 through the reduce) is skipped on rank 0
+    too: zero metrics and every parameter and buffer unchanged."""
+    for r in runs["ranks"]:
+        np.testing.assert_array_equal(r["verdict"]["metrics"][:4].numpy(),
+                                      0.0)
+        for name, before in r["after_poison"].items():
+            assert torch.equal(r["verdict"]["after"][name], before), name
 
 
 def test_eval_with_a_padded_row_matches_jax_psum(runs):

@@ -12,8 +12,9 @@ numpy-seeded inputs and weights carried from the JAX ``init`` by
   vector) against the JAX step, on a batch with 8 samples per channel in
   the last stage, where torch's unbiased running-variance update would
   be off by 8/7; the same with ``--grad-accum 2`` (the statistics chain
-  through the micro-batches); a non-finite step leaves every BN buffer
-  bitwise unchanged;
+  through the micro-batches), and on the first batch of both packages'
+  image-folder loaders (8 JPEGs, byte-equal); a non-finite step leaves
+  every BN buffer bitwise unchanged;
 * ``compat``: the weight carry both ways.
 
 Train-mode logits are compared with both sides computing in float64:
@@ -224,16 +225,27 @@ def _poisoned():
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_step_run(accum):
-    """(params0, stats0, metrics, params1, stats1) of one JAX SGD step
-    of resnet18 (lr 0.1, momentum 0.9, wd 1e-4), fp32 parameters, the
-    model computing in float64 (see the module docstring)."""
-    params0, stats0 = _jax_vars("resnet18", "v1")
+def _jax_step(accum):
+    """``(mesh, opt, step)``: the JAX SGD step of resnet18 (lr 0.1,
+    momentum 0.9, wd 1e-4), the model computing in float64 (see the
+    module docstring), built once per ``accum``: each batch it runs
+    costs one execution and no new compile."""
     with jax.enable_x64(True):
         mesh = make_mesh(devices=jax.devices()[:1])
         model = RESNET_REGISTRY["resnet18"](num_classes=CLASSES,
                                             dtype=jnp.float64)
         opt = jax_optimizer(0.9, 1e-4, "sgd")
+        step = jax_step(model, opt, mesh, grad_accum=accum, mean=MEAN,
+                        std=STD, health_stats=True, weight_decay=1e-4)
+    return mesh, opt, step
+
+
+def _jax_step_on(accum, images, labels):
+    """(params0, stats0, metrics, params1, stats1) of one JAX step from
+    the ``_jax_vars`` state (fp32 parameters) on ``(images, labels)``."""
+    params0, stats0 = _jax_vars("resnet18", "v1")
+    mesh, opt, step = _jax_step(accum)
+    with jax.enable_x64(True):
         # float64 statistics: the micro-batch scan carries them, and its
         # carry keeps one dtype.
         state = JaxTrainState(
@@ -241,31 +253,31 @@ def _jax_step_run(accum):
             batch_stats=jax.tree.map(lambda a: a.astype(np.float64), stats0),
             opt_state=opt.init(params0))
         state = replicate_state(state, mesh)
-        step = jax_step(model, opt, mesh, grad_accum=accum, mean=MEAN,
-                        std=STD, health_stats=True, weight_decay=1e-4)
-        gi, gl = shard_batch(mesh, *_batch())
+        gi, gl = shard_batch(mesh, images, labels)
         state, m = step(state, gi, gl, np.float32(0.1))
         return (params0, stats0, np.asarray(m),
                 jax.device_get(state.params),
                 jax.device_get(state.batch_stats))
 
 
-def _port_step(accum, params0, stats0, poison=False):
+@functools.lru_cache(maxsize=None)
+def _jax_step_run(accum):
+    return _jax_step_on(accum, *_batch())
+
+
+def _port_step(accum, params0, stats0, poison=False, batch=None):
     model = _port("resnet18", "v1", params0, stats0, torch.float64)
     opt = make_optimizer(0.9, 1e-4, "sgd")
     state = create_train_state(model, opt)
     step = make_train_step(opt, MEAN, STD, grad_accum=accum,
                            health_stats=True)
-    images, labels = _poisoned() if poison else _batch()
+    images, labels = batch or (_poisoned() if poison else _batch())
     state, m = step(state, torch.from_numpy(images),
                     torch.from_numpy(labels), torch.tensor(0.1))
     return state, m.numpy()
 
 
-@pytest.mark.parametrize("accum", [1, 2])
-def test_sgd_step_params_and_batch_stats_match_jax(accum):
-    params0, stats0, want_m, want_p, want_s = _jax_step_run(accum)
-    state, got_m = _port_step(accum, params0, stats0)
+def _assert_step_matches(state, got_m, want_m, want_p, want_s):
     np.testing.assert_allclose(got_m, want_m, rtol=1e-4, atol=1e-4)
     got = state.model.state_dict()
     want = resnet_params_from_jax(want_p, want_s)
@@ -274,6 +286,14 @@ def test_sgd_step_params_and_batch_stats_match_jax(accum):
         np.testing.assert_allclose(got[name].numpy(), w.numpy(),
                                    rtol=STEP_TOL, atol=STEP_TOL,
                                    err_msg=name)
+    return got, want
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_sgd_step_params_and_batch_stats_match_jax(accum):
+    params0, stats0, want_m, want_p, want_s = _jax_step_run(accum)
+    state, got_m = _port_step(accum, params0, stats0)
+    got, want = _assert_step_matches(state, got_m, want_m, want_p, want_s)
     # The check can tell the two updates apart: torch's unbiased running
     # variance (n / (n - 1), n = 8 / accum samples per channel in the
     # last stage, 1 x 1 px at 32 px) would miss the JAX value by far
@@ -298,3 +318,39 @@ def test_nonfinite_step_leaves_bn_buffers_bitwise_unchanged():
     for name, w in model_sd.items():
         assert torch.equal(got[name], w), name
     assert int(state.step) == 1
+
+
+def test_sgd_step_on_the_first_image_folder_batch_matches_jax(tmp_path):
+    """The slice end to end on the host side: the first train batch of
+    the JAX package's image-folder loader and of the port's (PIL path,
+    8 JPEGs of 40 px read at 32 px, 4 classes), byte-equal, then one
+    SGD step on it in both packages from the same weights."""
+    from imagent_tpu.config import Config as JaxConfig
+    from imagent_tpu.data.imagefolder import ImageFolderLoader as JaxLoader
+    from imagent_tpu_torch.config import Config
+    from imagent_tpu_torch.data.imagefolder import ImageFolderLoader
+    from imagent_tpu_torch.data.texturegen import generate_imagefolder
+
+    root = generate_imagefolder(str(tmp_path), n_classes=4,
+                                train_per_class=2, val_per_class=1, img=40)
+    kw = dict(data_root=root, image_size=32, workers=0, native_io=False)
+    batches = []
+    for cls, cfg in ((JaxLoader, JaxConfig(**kw)),
+                     (ImageFolderLoader, Config(**kw))):
+        loader = cls(cfg, 0, 1, 8, "train")
+        try:
+            batches.append(next(iter(loader.epoch(0))))
+        finally:
+            loader.close()
+    want_b, got_b = batches
+    images, labels = _batch()
+    assert got_b.images.shape == images.shape
+    assert got_b.images.dtype == images.dtype
+    np.testing.assert_array_equal(got_b.images, want_b.images)
+    np.testing.assert_array_equal(got_b.labels, want_b.labels)
+    assert got_b.labels.max() < CLASSES and len(set(got_b.labels)) == 4
+    params0, stats0, want_m, want_p, want_s = _jax_step_on(
+        1, want_b.images, want_b.labels)
+    state, got_m = _port_step(1, params0, stats0,
+                              batch=(got_b.images, got_b.labels))
+    _assert_step_matches(state, got_m, want_m, want_p, want_s)
